@@ -7,6 +7,8 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 Phases, in order; any failure exits non-zero:
 
+0. the port's imports load no module of the JAX package (``pindel_tpu``)
+   and no jax (checked again at the end);
 1. environment: torch, CUDA and nvcc versions, the card's name and power
    limit, the host's CPU model and core count;
 2. build: the CUDA scan kernel (csrc/scan.cu) from the checkout's sources;
@@ -26,7 +28,8 @@ Phases, in order; any failure exits non-zero:
 4b. the CLI on small BAM scenes (BAM + BreakDancer discovery, -q, -z, -g):
    reports byte-identical to the golden files, the scan kernel launched,
    the explicit-window kernel's rows above 0 where evidence windows guide
-   the search, and the native BAM and RP libraries loaded;
+   the search, and the native BAM and RP libraries loaded from
+   pindel_tpu_torch/build/native/;
 5. scene 1 of bench.py at full size (50,000 reads over a 6 Mb chromosome,
    -T 4) and 6. scene 2 (BAM input with a BreakDancer calls file: 12,000
    read pairs over a 2 Mb chromosome, -T 4), each: a first run that
@@ -36,7 +39,18 @@ Phases, in order; any failure exits non-zero:
    sha256 digests in pindel_tpu_torch/testing/scene2_digests.json), with
    the median wall time, rate, fallback ratio, launches and phase timers;
    then every recorded scan call is held against the plain version and
-   each shape is timed.
+   each shape is timed;
+7. scenes 1 and 2 with ``--backend mesh`` (the data-parallel backend,
+   parallel/mesh_fused.py), over all visible cards (the CLI) and over
+   ``["cuda:0", "cuda:0"]`` (two shards on one card, through
+   ``run_files``): for each device list a first run that records every
+   shard's scan calls, each then held against the plain version on the
+   card it ran on and each shard shape timed; then three timed runs of
+   each list in turns with three fused runs (fused, mesh, mesh, then the
+   reverse), every listed card launching the kernel, reports
+   byte-identical to the kernel runs of 5 and 6 (scene 2's also to the
+   digests), with the median wall time, rate, scan launches per card and
+   phase timers of each.
 
 The script imports torch, numpy and pindel_tpu_torch, and no jax.
 ``--profile-dir`` also traces one run of each full-size scene with
@@ -61,6 +75,28 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 MAX_FALLBACK = 0.01
 TIMED_RUNS = 3
+# the H100 SXM's published peaks (NVIDIA's H100 datasheet): HBM bytes/s,
+# and the int32 rate, from the float32 rate outside the tensor cores (67e12,
+# an FMA counted as two operations, 128 float32 lanes per SM and clock):
+# an SM issues 64 int32 operations per clock, so a quarter of it
+PEAK_BYTES = 3.35e12
+PEAK_INT32_OPS = 67e12 / 4
+# int32 operations per candidate and step of the scan, from csrc/scan.cu:
+# pass 1 (mismatch test, N flip, count) and pass 2 (mismatch test, N flip,
+# level add, last-mismatch update, strict-bad test, key, min and runner-up
+# fold)
+PASS1_OPS = 3
+PASS2_OPS = 8
+# phase 7: the device lists of the mesh runs (None: every visible card)
+MESH_LISTS = {"all": None, "cuda0x2": ["cuda:0", "cuda:0"]}
+# what each path of the kernels line gives of its scan calls
+SCAN_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+
+
+def reference_modules():
+    """Loaded modules of the JAX package or of jax."""
+    return sorted(m for m in sys.modules
+                  if m.split(".")[0] in ("pindel_tpu", "jax", "jaxlib"))
 
 
 def fail(msg: str) -> None:
@@ -153,6 +189,24 @@ def compare(args, kw, scan_cuda, scan_rows_ref) -> int:
     return err
 
 
+def scan_bound(args, kw):
+    """The least time the card could take for one scan call, from its
+    inputs: the int32 operations its valid candidates need (pass 1 over
+    the read's steps, pass 2 over ``lsteps``) at PEAK_INT32_OPS, or each
+    input byte read and each output byte written once at PEAK_BYTES,
+    whichever is longer.  Returns (ms, "operations" or "bytes")."""
+    tiles, qq, valid_w, qlen, thr = args[:5]
+    lsteps = kw["lsteps"] or kw["lmax"]
+    vw = valid_w.long().cpu()
+    steps1 = (torch.clamp(qlen.long().cpu(), max=lsteps) - 1).clamp(min=0)
+    ops = int((vw * (steps1 * PASS1_OPS + lsteps * PASS2_OPS)).sum())
+    nbytes = (sum(a.numel() * a.element_size() for a in args)
+              + 2 * tiles.shape[0] * kw["lmax"] * 4)
+    t_ops, t_bytes = ops / PEAK_INT32_OPS, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
 def time_ms(fn, reps: int) -> float:
     fn()
     torch.cuda.synchronize()
@@ -192,10 +246,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this needs a CUDA card")
     sys.path.insert(0, REPO)
+    from pindel_tpu_torch import native
+    from pindel_tpu_torch.__main__ import build_parser, settings_from_args
     from pindel_tpu_torch.__main__ import main as port_main
     from pindel_tpu_torch.ops import engine_fused, engine_jax, scan_cuda
     from pindel_tpu_torch.ops.scan import scan_rows_ref
-    from pindel_tpu_torch.pipeline import g_fallback, g_timer
+    from pindel_tpu_torch.pipeline import g_fallback, g_timer, run_files
     from pindel_tpu_torch.testing.scenes import (BAM_SCENES, SCENE1,
                                                  SCENE1_FLAGS, SCENE2,
                                                  SMALL_SCENES, bam_argv,
@@ -205,9 +261,15 @@ def main() -> int:
                                                  reports, two_region_lanes,
                                                  write_scene)
 
+    # ---- 0. the port stands on its own
+    loaded = reference_modules()
+    if loaded:
+        fail(f"the port's imports loaded {loaded}")
+    log("imports: no module of pindel_tpu or jax loaded")
+
     # ---- 1. environment
     card = card_line()
-    name = torch.cuda.get_device_name(0)
+    kind = torch.cuda.get_device_name(0)
     nvcc = subprocess.run([scan_cuda.nvcc(), "--version"],
                           capture_output=True, text=True, check=True)
     log(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
@@ -311,13 +373,13 @@ def main() -> int:
 
     def reset_counts():
         scan_cuda.LAUNCHES = 0
+        scan_cuda.LAUNCHES_BY_DEVICE.clear()
         engine_fused.FAR_WIN_ROWS = 0
         engine_jax.LEGACY_ROWS = 0
 
-    def full_scene(label, argv_of, n, unit, check_reports):
-        """5/6: record, plain-scan, timed and per-call phases of one
-        full-size scene; returns the median run and the scan checks."""
-        # a. first run (cold): record every scan call of the main path
+    def recorded(run):
+        """``run()`` with every scan call of the main path recorded (on
+        each shard's own card); returns its result and the calls."""
         calls = []
         kernel_scan = engine_fused.scan_rows
 
@@ -326,8 +388,63 @@ def main() -> int:
             return kernel_scan(*a, **kw)
 
         engine_fused.scan_rows = recording
-        first_s = run_cli(port_main, argv_of("rec"))
+        try:
+            return run(), calls
+        finally:
+            engine_fused.scan_rows = kernel_scan
+
+    def check_calls(label, calls):
+        """Every recorded scan call against the plain version on the card
+        it ran on, and the kernel, plain and bound times of each shape;
+        fails on any difference.  Returns the max error and the times at
+        the largest shape."""
+        if not calls:
+            fail(f"{label}: the main path made no scan call")
+        err_all = 0
+        timings = {}
+        for cargs, kw in calls:
+            with torch.cuda.device(cargs[0].device):
+                err = compare(cargs, kw, scan_cuda, scan_rows_ref)
+                err_all = max(err_all, err)
+                rows, t = cargs[0].shape
+                shape = (kw["w"], kw["lmax"], kw["lsteps"], rows)
+                if shape in timings:
+                    continue
+                ms = time_ms(lambda: scan_cuda.scan_rows_cuda(*cargs, **kw),
+                             10)
+                plain = time_ms(lambda: scan_rows_ref(*cargs, **kw), 2)
+            bound, bound_by = scan_bound(cargs, kw)
+            timings[shape] = dict(rows=rows, lanes=t - kw["lmax"], ms=ms,
+                                  plain_ms=plain, bound_ms=bound,
+                                  bound_by=bound_by, w=kw["w"],
+                                  lsteps=kw["lsteps"])
+            log(f"{label} scan w={kw['w']} lmax={kw['lmax']} "
+                f"lsteps={kw['lsteps']} rows={rows} on "
+                f"{cargs[0].device}: kernel {ms:.4f} ms, plain "
+                f"{plain:.3f} ms, bound {bound:.4f} ms ({bound_by}), "
+                f"max_abs_err={err}  [{card}]")
+        log(f"kernel vs plain on all {len(calls)} {label} scan calls: "
+            f"max_abs_err={err_all}")
+        if err_all:
+            fail(f"{label}: kernel disagrees with its plain version on "
+                 f"main-path inputs (max {err_all})")
+        main_shape = max(timings.values(),
+                         key=lambda t: t["rows"] * t["lanes"])
+        log(f"{label}: scan timing reported at the main path's largest "
+            f"shape: {main_shape['lanes']} lanes x {main_shape['rows']} "
+            f"rows, w={main_shape['w']} lsteps={main_shape['lsteps']}: "
+            f"kernel {main_shape['ms']:.4f} ms, bound "
+            f"{main_shape['bound_ms']:.4f} ms ({main_shape['bound_by']}), "
+            f"{main_shape['bound_ms'] / main_shape['ms']:.1%} of it  [{card}]")
+        return dict(main_shape, max_abs_err=err_all)
+
+    def full_scene(label, argv_of, n, unit, check_reports):
+        """5/6: record, plain-scan, timed and per-call phases of one
+        full-size scene; returns the median run and the scan checks."""
+        # a. first run (cold): record every scan call of the main path
+        first_s, calls = recorded(lambda: run_cli(port_main, argv_of("rec")))
         # b. the plain scan in the kernel's place: the reference reports
+        kernel_scan = engine_fused.scan_rows
         engine_fused.scan_rows = scan_rows_ref
         before = scan_cuda.LAUNCHES
         plain_s = run_cli(port_main, argv_of("plain"))
@@ -380,29 +497,7 @@ def main() -> int:
             log(f"  phase {pname:<52s} {sec:9.3f} s  [{card}]")
 
         # d. every recorded main-path call: kernel vs plain, time per shape
-        err_all = 0
-        timings = {}
-        for cargs, kw in calls:
-            err = compare(cargs, kw, scan_cuda, scan_rows_ref)
-            err_all = max(err_all, err)
-            rows, t = cargs[0].shape
-            shape = (kw["w"], kw["lmax"], kw["lsteps"], rows)
-            if shape in timings:
-                continue
-            ms = time_ms(lambda: scan_cuda.scan_rows_cuda(*cargs, **kw), 10)
-            plain = time_ms(lambda: scan_rows_ref(*cargs, **kw), 2)
-            timings[shape] = dict(rows=rows, lanes=t - kw["lmax"], ms=ms,
-                                  plain_ms=plain)
-            log(f"{label} scan w={kw['w']} lmax={kw['lmax']} "
-                f"lsteps={kw['lsteps']} rows={rows}: kernel {ms:.4f} ms, "
-                f"plain {plain:.3f} ms, max_abs_err={err}  [{card}]")
-        log(f"kernel vs plain on all {len(calls)} {label} scan calls: "
-            f"max_abs_err={err_all}")
-        if err_all:
-            fail(f"{label}: kernel disagrees with its plain version on "
-                 f"main-path inputs (max {err_all})")
-        if not calls:
-            fail(f"{label}: the main path made no scan call")
+        scan = check_calls(label, calls)
         del calls
         torch.cuda.empty_cache()
 
@@ -420,13 +515,10 @@ def main() -> int:
                 fh.write(f"{card}\nwall under profiler {prof_wall:.3f} s\n")
                 fh.write(table)
             log(f"profile: {path} (wall under profiler {prof_wall:.3f} s)")
-        main_shape = max(timings.values(),
-                         key=lambda t: t["rows"] * t["lanes"])
-        log(f"{label}: scan timing reported at the main path's largest "
-            f"shape: {main_shape['lanes']} lanes x {main_shape['rows']} rows")
-        return dict(launches=med["launches"], max_abs_err=err_all,
-                    ms=main_shape["ms"], plain_ms=main_shape["plain_ms"],
-                    far_win_rows=med["far_win_rows"])
+        return dict({k: scan[k] for k in SCAN_KEYS},
+                    launches=med["launches"],
+                    far_win_rows=med["far_win_rows"], wall=med["wall"],
+                    want=want)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         # ---- 4. the CLI on small text scenes vs the golden NumPy reports
@@ -468,13 +560,20 @@ def main() -> int:
                 f"{engine_fused.FAR_WIN_ROWS}, legacy rows "
                 f"{engine_jax.LEGACY_ROWS}, fallback "
                 f"{g_fallback.fallback}/{g_fallback.total}")
-        # BAM intake and RP discovery ran the native libraries, not a
-        # Python re-statement
-        native = sys.modules["pindel_tpu.native"]
+        # BAM intake and RP discovery ran the port's native libraries, not
+        # a Python re-statement
         missing = {"ptbam", "ptrp"} - set(native._LIBS)
         if missing:
             fail(f"BAM scenes: native libraries not loaded: {sorted(missing)}")
-        log(f"native libraries loaded: {sorted(native._LIBS)}")
+        where = {lib_name: lib._name
+                 for lib_name, lib in native._LIBS.items()}
+        outside = {lib_name: path for lib_name, path in where.items()
+                   if not path.startswith(native.BUILD_DIR + os.sep)}
+        if outside:
+            fail(f"native libraries loaded from outside "
+                 f"{native.BUILD_DIR}: {outside}")
+        log(f"native libraries loaded from {native.BUILD_DIR}: "
+            f"{sorted(where)}")
 
         # ---- 5. scene 1 at full size
         s1 = os.path.join(work, "scene1")
@@ -488,10 +587,11 @@ def main() -> int:
             if b"ChrID" not in want.get("D", b""):
                 fail("scene 1: no deletion reported")
 
-        scene1 = full_scene(
-            "scene 1", lambda run: ["-f", fa1, "-p", reads1, *SCENE1_FLAGS,
-                                    "-o", os.path.join(s1, run)],
-            n1, "reads", scene1_reports)
+        def argv1(run):
+            return ["-f", fa1, "-p", reads1, *SCENE1_FLAGS,
+                    "-o", os.path.join(s1, run)]
+
+        scene1 = full_scene("scene 1", argv1, n1, "reads", scene1_reports)
         max_err = max(max_err, scene1["max_abs_err"])
 
         # ---- 6. scene 2 at full size
@@ -511,30 +611,139 @@ def main() -> int:
             if b"ChrID" not in want.get("D", b""):
                 fail("scene 2: no deletion reported")
 
-        scene2 = full_scene(
-            "scene 2", lambda run: bam_argv(SCENE2, paths2,
-                                            os.path.join(s2, run)),
-            n2, "read pairs", scene2_reports)
+        def argv2(run):
+            return bam_argv(SCENE2, paths2, os.path.join(s2, run))
+
+        scene2 = full_scene("scene 2", argv2, n2, "read pairs",
+                            scene2_reports)
         if SCENE2.far_win and scene2["far_win_rows"] == 0:
             fail("scene 2: _far_win_kernel searched no read")
         max_err = max(max_err, scene2["max_abs_err"])
 
-    if "jax" in sys.modules:
-        fail("jax was imported")
-    paths = {label: {k: v[k] for k in ("launches", "max_abs_err", "ms",
-                                        "plain_ms")}
+        # ---- 7. scenes 1 and 2 through the data-parallel mesh backend,
+        # in turns with the fused backend (fused, mesh..., then reversed)
+        def run_backend(argv, devices) -> float:
+            """One run: the CLI (``fused``, or ``--backend mesh`` over
+            every visible card), or run_files over an explicit device
+            list; wall seconds."""
+            if devices == "fused":
+                return run_cli(port_main, argv)
+            if devices is None:
+                return run_cli(port_main, argv + ["--backend", "mesh"])
+            args = build_parser().parse_args(argv)
+            t0 = time.monotonic()
+            run_files(args.fasta, args.pindel_file, args.output_prefix,
+                      settings=settings_from_args(args), device="cuda",
+                      bam_config=args.config, backend="mesh",
+                      devices=devices)
+            torch.cuda.synchronize()
+            return time.monotonic() - t0
+
+        def cards_of(devices):
+            """The card indices a run over ``devices`` must launch on."""
+            if devices == "fused":
+                return {torch.cuda.current_device()}
+            if devices is None:
+                return set(range(torch.cuda.device_count()))
+            return {torch.device(d).index for d in devices}
+
+        configs = [("fused", "fused"), *MESH_LISTS.items()]
+        mesh_paths = {}
+        mesh_scans = {}
+        for key, label, argv_of, n, unit, base in (
+                ("scene1", "scene 1", argv1, n1, "reads", scene1),
+                ("scene2", "scene 2", argv2, n2, "read pairs", scene2)):
+            # a first run of each device list (its warm-up) records every
+            # shard's scan calls, each held against the plain scan on the
+            # card it ran on
+            for cfg, devices in MESH_LISTS.items():
+                mlabel = f"{label} mesh {cfg}"
+                argv = argv_of(f"rec_{cfg}")
+                _, calls = recorded(lambda: run_backend(argv, devices))
+                if reports(prefix_of(argv)) != base["want"]:
+                    fail(f"{mlabel} recorded run: reports differ from the "
+                         "fused kernel runs'")
+                ran_on = {c[0][0].device.index for c in calls}
+                if ran_on != cards_of(devices):
+                    fail(f"{mlabel}: scan calls ran on cards "
+                         f"{sorted(ran_on)}, not {sorted(cards_of(devices))}")
+                mesh_scans[key, cfg] = check_calls(mlabel, calls)
+                max_err = max(max_err, mesh_scans[key, cfg]["max_abs_err"])
+                del calls
+                torch.cuda.empty_cache()
+            runs = {cfg: [] for cfg, _ in configs}
+            for i in range(TIMED_RUNS):
+                for cfg, devices in (configs if i % 2 == 0
+                                      else configs[::-1]):
+                    mlabel = f"{label} {cfg} run {i}"
+                    argv = argv_of(f"turns_{cfg}_{i}")
+                    reset_counts()
+                    wall = run_backend(argv, devices)
+                    launches = scan_cuda.LAUNCHES
+                    by_card = dict(sorted(
+                        scan_cuda.LAUNCHES_BY_DEVICE.items()))
+                    check_run(mlabel, launches)
+                    if set(by_card) != cards_of(devices):
+                        fail(f"{mlabel}: scan launches by card {by_card}, "
+                             f"expected every card of "
+                             f"{sorted(cards_of(devices))}")
+                    got = reports(prefix_of(argv))
+                    if got != base["want"]:
+                        fail(f"{mlabel}: reports differ from the fused "
+                             "kernel runs'")
+                    if key == "scene2" and digests(got) != want_digests:
+                        fail(f"{mlabel}: reports differ from the "
+                             "reference's digests")
+                    runs[cfg].append(dict(wall=wall, launches=launches,
+                                           by_card=by_card,
+                                           phases=g_timer.items()))
+                    log(f"{mlabel}: wall {wall:.3f} s, {n / wall:.1f} "
+                        f"{unit}/s, scan launches {launches} by card "
+                        f"{by_card}  [{card}]")
+            fused_med = statistics.median(r["wall"] for r in runs["fused"])
+            for cfg, devices in configs:
+                if len({str(r["by_card"]) for r in runs[cfg]}) != 1:
+                    fail(f"{label} {cfg}: launches differ between runs")
+                walls = [r["wall"] for r in runs[cfg]]
+                med = runs[cfg][walls.index(statistics.median(walls))]
+                log(f"{label} {cfg} ({devices}): median wall "
+                    f"{med['wall']:.3f} s of {TIMED_RUNS} in turns "
+                    f"({n / med['wall']:.1f} {unit}/s), reports "
+                    f"byte-identical to the fused runs of phase 5/6, scan "
+                    f"launches {med['launches']} by card {med['by_card']}  "
+                    f"[{card}]")
+                top = sorted(med["phases"].items(), key=lambda kv: -kv[1])
+                for pname, sec in top[:8]:
+                    log(f"  phase {pname:<52s} {sec:9.3f} s  [{card}]")
+                if cfg != "fused":
+                    scan = mesh_scans[key, cfg]
+                    mesh_paths[f"{key}_mesh_{cfg}"] = dict(
+                        {k: scan[k] for k in SCAN_KEYS},
+                        launches=med["launches"],
+                        launches_by_card={
+                            str(k): v for k, v in med["by_card"].items()},
+                        wall=med["wall"], fused_wall=fused_med)
+
+    loaded = reference_modules()
+    if loaded:
+        fail(f"a run loaded {loaded}")
+    paths = {label: {k: v[k] for k in ("launches", *SCAN_KEYS, "wall")}
              for label, v in (("scene1", scene1), ("scene2", scene2))}
+    paths.update(mesh_paths)
+    # K1 at scene 1's largest main-path shape; launches over every path
     kernels = [dict(name="scan_rows", route="cuda",
                     source="pindel_tpu_torch/csrc/scan.cu",
                     replaces="pindel_tpu/ops/pallas_scan.py:76",
-                    launches=scene1["launches"] + scene2["launches"],
+                    launches=sum(v["launches"] for v in paths.values()),
                     max_abs_err=max_err,
                     ms=scene1["ms"], plain_ms=scene1["plain_ms"],
+                    bound_ms=scene1["bound_ms"],
+                    bound_by=scene1["bound_by"], library_ms=None,
                     paths=paths)]
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
     return 0
 

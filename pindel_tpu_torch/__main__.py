@@ -2,18 +2,20 @@
 -o prefix``.
 
 The flags are those of ``python -m pindel_tpu`` (reference CLI,
-fn_parameters.cpp:17-351), with ``--device`` (default ``cuda``) in place of
-``--backend``.  ``--hosts > 1`` and ``-x > 4`` stop with an error that
-names their ROADMAP item.
+fn_parameters.cpp:17-351), plus ``--device`` (default ``cuda``);
+``--backend`` takes ``fused`` (one device) or ``mesh`` (data-parallel over
+every visible card), the reference's names for the two.  ``--hosts > 1``
+and ``-x > 4`` stop with an error that names their ROADMAP item.
 """
 from __future__ import annotations
 
 import argparse
 import sys
 
-from pindel_tpu.config import Settings
-from pindel_tpu_torch.pipeline import (check_supported, run_assembly_files,
-                                       run_dd_files, run_files)
+from pindel_tpu_torch.config import Settings
+from pindel_tpu_torch.pipeline import (BACKENDS, check_supported,
+                                       run_assembly_files, run_dd_files,
+                                       run_files)
 
 
 def _unary(value: str) -> bool:
@@ -120,6 +122,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="torch device of the search: cuda (default) or "
                          "cpu; cuda without a card is an error")
+    ap.add_argument("--backend", default="fused", choices=BACKENDS,
+                    help="fused: the search on one device; mesh: read "
+                         "batches split over every visible card (one CPU "
+                         "device with --device cpu)")
     return ap
 
 
@@ -186,12 +192,12 @@ def main(argv=None) -> int:
         check()
         return run_assembly_files(args.fasta, args.config, args.assembly,
                                   args.output_prefix, settings=s,
-                                  device=args.device)
+                                  device=args.device, backend=args.backend)
     if args.genotyping:
         if not args.config:
             ap.error("-g requires a bam config (-i)")
-        # genotyping does no device work: the reference's entry serves
-        from pindel_tpu.genotyping import run_genotyping_files
+        # genotyping does no device work
+        from pindel_tpu_torch.genotyping import run_genotyping_files
         return run_genotyping_files(args.fasta, args.config,
                                     args.genotyping, args.output_prefix,
                                     ploidy_path=args.ploidy or "")
@@ -201,14 +207,15 @@ def main(argv=None) -> int:
             ap.error("-q requires a bam config (-i)")
         check()
         return run_dd_files(args.fasta, args.config, args.output_prefix,
-                            settings=s, device=args.device)
+                            settings=s, device=args.device,
+                            backend=args.backend)
     if args.hosts > 1:
         ap.error("--hosts > 1 is not ported to pindel_tpu_torch yet "
                  "(ROADMAP Queue 1 item 11)")
     check()
     run_files(args.fasta, args.pindel_file, args.output_prefix,
               settings=s, device=args.device, bam_config=args.config,
-              pindel_config=args.pindel_config)
+              pindel_config=args.pindel_config, backend=args.backend)
     return 0
 
 

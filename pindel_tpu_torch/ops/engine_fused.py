@@ -17,10 +17,14 @@ hand-written CUDA scan (``csrc/scan.cu``) on CUDA tensors and runs its plain
 PyTorch version on CPU tensors.  The device half below keeps the JAX
 functions' names and output contracts, so the host half (copied from the
 JAX module, which imports jax at module top) decodes the same packed
-words.  Uniform chains are rebuilt exactly on the host; the rest go back to
-the Searcher, which reruns them on the NumPy oracle (``search.py``), except
-in ``run``, whose non-uniform rows and non-canonical lanes take the legacy
-per-lane backend (``engine_jax.py``) on the same device.
+words.  ``TorchFusedBackend`` reaches the three launches through its
+dispatch points ``_close_call``/``_far_call``/``_far_win_call``, which take
+the host payload; the data-parallel backend (``parallel/mesh_fused.py``)
+overrides them to split the payload over several devices.  Uniform chains
+are rebuilt exactly on the host; the rest go back to the Searcher, which
+reruns them on the NumPy oracle (``search.py``), except in ``run``, whose
+non-uniform rows and non-canonical lanes take the legacy per-lane backend
+(``engine_jax.py``) on the same device.
 """
 from __future__ import annotations
 
@@ -31,10 +35,10 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from pindel_tpu import dna
-from pindel_tpu.config import MAX_READ_LENGTH
-from pindel_tpu.genome import SPACER
-from pindel_tpu.profiling import g_fallback, g_timer
+from pindel_tpu_torch import dna
+from pindel_tpu_torch.config import MAX_READ_LENGTH
+from pindel_tpu_torch.genome import SPACER
+from pindel_tpu_torch.profiling import g_fallback, g_timer
 from pindel_tpu_torch.ops.engine_jax import TorchLaneBackend
 from pindel_tpu_torch.ops.scan import dead_level, key_shift, scan_rows
 
@@ -454,7 +458,7 @@ def _packer():
     if _PACKLIB is None:
         import ctypes
 
-        from pindel_tpu import native
+        from pindel_tpu_torch import native
         lib = native.load("ptpack", ["packer.cpp"], link=())
         for fn in ("pt_pack_close", "pt_pack_far"):
             getattr(lib, fn).argtypes = [
@@ -643,9 +647,12 @@ class _Download:
         if dev.device.type == "cuda":
             self._host = torch.empty(dev.shape, dtype=dev.dtype,
                                      pin_memory=True)
-            self._host.copy_(dev, non_blocking=True)
-            self._event = torch.cuda.Event()
-            self._event.record()
+            # the copy and the event on the stream of the tensor's device,
+            # which need not be the current device (the mesh backend)
+            with torch.cuda.device(dev.device):
+                self._host.copy_(dev, non_blocking=True)
+                self._event = torch.cuda.Event()
+                self._event.record()
         else:
             self._host = dev
             self._event = None
@@ -694,7 +701,7 @@ class TorchFusedBackend:
         decode of one chunk overlaps the device wait of the next."""
         if not self._pool_tried:
             self._pool_tried = True
-            from pindel_tpu.events.detect import get_num_threads
+            from pindel_tpu_torch.events.detect import get_num_threads
             if get_num_threads() > 1:
                 from concurrent.futures import ThreadPoolExecutor
                 self._pool = ThreadPoolExecutor(max_workers=1)
@@ -766,13 +773,8 @@ class TorchFusedBackend:
         lsteps = _round_up(int(qlen[:n].max()), 16)
         t1 = time.monotonic()
         g_timer.add("fused: pack bdwin", t1 - t0)
-        with torch.inference_mode():
-            out_dev = _far_win_kernel(
-                self.state.chromcat,
-                torch.from_numpy(payload).to(self.device), self.state.maxmm,
-                w=w, lmax=lmax, mpm=self.mpm, bp_start=bp_start,
-                lsteps=lsteps)
-            outarr = _Download(out_dev).get()
+        outarr = self._far_win_call(payload, w=w, lmax=lmax, mpm=self.mpm,
+                                    bp_start=bp_start, lsteps=lsteps).get()
         FAR_WIN_ROWS += n
         t2 = time.monotonic()
         g_timer.add(f"fused: bdwin wait w={w} b={b}", t2 - t1)
@@ -790,8 +792,8 @@ class TorchFusedBackend:
         chains = decode_chains(self.chrom_codes, emit, w_off, ss,
                                lane == 1, q_dev, qlen[:n],
                                np.full(n, w, np.int64), lmax)
-        from pindel_tpu.reads import AnchorSet
-        from pindel_tpu.search import _anchorset_from_chain
+        from pindel_tpu_torch.reads import AnchorSet
+        from pindel_tpu_torch.search import _anchorset_from_chain
         results: List = [None] * n
         legacy_rows: List[int] = []
         for i in range(n):
@@ -816,6 +818,25 @@ class TorchFusedBackend:
                 results[i] = res
         g_timer.add("fused: decode bdwin", time.monotonic() - t2)
         return results
+
+    # kernel dispatch points (overridden by the mesh backend): each takes
+    # the host payload and returns its packed output on the way to host
+    # memory (``get`` waits for it)
+    def _close_call(self, payload: np.ndarray, **static):
+        return self._launch(_close_kernel, payload, static)
+
+    def _far_call(self, payload: np.ndarray, **static):
+        return self._launch(_far_kernel, payload, static)
+
+    def _far_win_call(self, payload: np.ndarray, **static):
+        return self._launch(_far_win_kernel, payload, static)
+
+    def _launch(self, kernel, payload: np.ndarray, static) -> _Download:
+        with torch.inference_mode():
+            out = kernel(self.state.chromcat,
+                         torch.from_numpy(payload).to(self.device),
+                         self.state.maxmm, **static)
+            return _Download(out)
 
     @staticmethod
     def _w_bucket(width: int) -> int:
@@ -993,13 +1014,9 @@ class TorchFusedBackend:
         payload = pack_fn(meta)
         t1 = time.monotonic()
         g_timer.add("fused: pack close", t1 - t0)
-        with torch.inference_mode():
-            out = _close_kernel(
-                self.state.chromcat,
-                torch.from_numpy(payload).to(self.device), self.state.maxmm,
-                w0=w0, w1=w1, lmax=lmax, mpm=self.mpm, bp_start=bp_start,
-                lsteps=st["lsteps"], with_r1=with_r1)
-            st["dev"] = _Download(out)
+        st["dev"] = self._close_call(
+            payload, w0=w0, w1=w1, lmax=lmax, mpm=self.mpm,
+            bp_start=bp_start, lsteps=st["lsteps"], with_r1=with_r1)
         g_timer.add("fused: dispatch close", time.monotonic() - t1)
         return st
 
@@ -1162,14 +1179,10 @@ class TorchFusedBackend:
 
         t1 = time.monotonic()
         g_timer.add("fused: pack far", t1 - t0)
-        with torch.inference_mode():
-            out = _far_kernel(
-                self.state.chromcat,
-                torch.from_numpy(payload).to(self.device), self.state.maxmm,
-                spans=tuple(spans), ws=tuple(ws), lmax=lmax, mpm=self.mpm,
-                bp_start=bp_start,
-                lsteps=_round_up(int(qlen[:nb].max()), 16))
-            dev = _Download(out)
+        dev = self._far_call(
+            payload, spans=tuple(spans), ws=tuple(ws), lmax=lmax,
+            mpm=self.mpm, bp_start=bp_start,
+            lsteps=_round_up(int(qlen[:nb].max()), 16))
         g_timer.add("fused: dispatch far", time.monotonic() - t1)
         return dict(dev=dev, base=base, nb=nb, b=b, qlen=qlen, blob=blob,
                     offs=offs, wins=wins, ws=ws, lmax=lmax)

@@ -27,12 +27,12 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-from pindel_tpu import dna
-from pindel_tpu.config import MAX_READ_LENGTH
-from pindel_tpu.genome import SPACER
-from pindel_tpu.ops.search_np import Lane
-from pindel_tpu.profiling import g_timer
-from pindel_tpu.reads import AnchorSet
+from pindel_tpu_torch import dna
+from pindel_tpu_torch.config import MAX_READ_LENGTH
+from pindel_tpu_torch.genome import SPACER
+from pindel_tpu_torch.ops.search_np import Lane
+from pindel_tpu_torch.profiling import g_timer
+from pindel_tpu_torch.reads import AnchorSet
 
 DEAD = 127      # dead-candidate mismatch level sentinel
 NEVER = -(1 << 20)   # step of the last strict mismatch: none yet

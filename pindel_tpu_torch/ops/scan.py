@@ -22,7 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pindel_tpu import dna
+from pindel_tpu_torch import dna
 
 U8DEAD = 255
 I16DEAD = 1000   # > max possible level for lmax > 255; keeps the key in int32

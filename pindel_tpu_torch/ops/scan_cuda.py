@@ -5,10 +5,12 @@ with a plain C entry point, under ``pindel_tpu_torch/build/``, at first use
 (or when the source is newer), and loaded with ctypes.  ``scan_rows_cuda``
 has the signature and output contract of ``pallas_scan_rows``; it checks
 its inputs, allocates the outputs, launches on PyTorch's current stream and
-counts its launches in ``LAUNCHES``.
+counts its launches in ``LAUNCHES`` (and per card index in
+``LAUNCHES_BY_DEVICE``).
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import os
 import shutil
@@ -27,6 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 LAUNCHES = 0        # kernel launches since import (or the last reset)
+LAUNCHES_BY_DEVICE = collections.Counter()   # the same, per card index
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -130,4 +133,5 @@ def scan_rows_cuda(tiles, qq, valid_w, qlen, thr, off=None,
         raise RuntimeError(f"pt_scan_rows launch failed: CUDA error {err} "
                            f"(rows={r} t={t} w={w} lmax={lmax})")
     LAUNCHES += 1
+    LAUNCHES_BY_DEVICE[device.index] += 1
     return kmin, k2

@@ -361,11 +361,11 @@ def two_region_lanes(seed: int, n_reads: int, scale: int):
     strand, some with a substitution), each with the two far-end regions of
     tests/test_engine_jax.py:67-80 around its copy, widened ``scale``
     times; returns (chromosome, lanes, max_snps, tsec_minus)."""
-    from pindel_tpu import dna
-    from pindel_tpu.config import Settings
-    from pindel_tpu.genome import SPACER, Genome
-    from pindel_tpu.reads import SplitRead
-    from pindel_tpu.search import far_end_lanes
+    from pindel_tpu_torch import dna
+    from pindel_tpu_torch.config import Settings
+    from pindel_tpu_torch.genome import SPACER, Genome
+    from pindel_tpu_torch.reads import SplitRead
+    from pindel_tpu_torch.search import far_end_lanes
     rng = np.random.default_rng(seed)
     genome = Genome()
     chrom = genome.add("chrT", random_seq(rng, 40_000 + 1100 * scale))
@@ -398,7 +398,7 @@ def legacy_anchors(batch, device) -> List[Tuple[list, int]]:
     """``TorchLaneBackend.run`` over a ``two_region_lanes`` batch on
     ``device``: per read its anchors as (length, position, direction,
     strand, mismatches) tuples and its whole-read mismatch count."""
-    from pindel_tpu.config import Settings
+    from pindel_tpu_torch.config import Settings
     from pindel_tpu_torch.ops.engine_fused import device_state_from_numpy
     from pindel_tpu_torch.ops.engine_jax import TorchLaneBackend
     chrom, lanes, ms, tm = batch

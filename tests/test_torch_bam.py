@@ -18,13 +18,13 @@ import bamwriter as tools_bamwriter  # noqa: E402
 from make_fai import make_fai  # noqa: E402
 
 from pindel_tpu.__main__ import main as reference_main  # noqa: E402
-from pindel_tpu.profiling import g_fallback  # noqa: E402
 from pindel_tpu_torch.__main__ import build_parser  # noqa: E402
 from pindel_tpu_torch.__main__ import main as port_main  # noqa: E402
 from pindel_tpu_torch.__main__ import settings_from_args  # noqa: E402
 from pindel_tpu_torch.ops import engine_fused  # noqa: E402
 from pindel_tpu_torch.pipeline import (run_assembly_files,  # noqa: E402
                                        run_dd_files, run_files)
+from pindel_tpu_torch.profiling import g_fallback  # noqa: E402
 from pindel_tpu_torch.testing import scenes  # noqa: E402
 from pindel_tpu_torch.testing.scenes import (BAM_SCENES, SCENE2,  # noqa: E402
                                              bam_argv, load_golden,
@@ -162,12 +162,12 @@ def test_bam_scene_reports_match_reference(tmp_path, name):
 def test_rp_library_failure_raises(tmp_path, monkeypatch):
     """A read-pair library that fails to build stops a BAM run, where
     bddata.modify_rp alone would run its Python re-statement silently."""
-    import pindel_tpu.bddata
+    import pindel_tpu_torch.bddata
 
     def broken():
         raise OSError("libptrp.so: build failed")
 
-    monkeypatch.setattr(pindel_tpu.bddata, "_native_rp", broken)
+    monkeypatch.setattr(pindel_tpu_torch.bddata, "_native_rp", broken)
     paths = scenes.build_seed3(str(tmp_path))
     with pytest.raises(OSError, match="libptrp"):
         run_files(paths["fa"], None, str(tmp_path / "port"), device="cpu",

@@ -4,10 +4,15 @@ Device-half functions and the close/far/explicit-window launches are
 compared on the same numpy-built inputs; the backend is compared at the
 Searcher level, and its per-lane ``run`` on BreakDancer-style windows, with
 the NumPy oracle and with FusedJaxBackend (as tests/test_engine_fused.py
-and tests/test_engine_jax.py do for the JAX engine).  All comparisons are
-exact: the search is integer-only.
+and tests/test_engine_jax.py do for the JAX engine).  Each side runs on its
+own host layer: the scenes are built with the JAX package's classes, and
+``to_port`` copies them into the port's (the two packages hold the same
+classes under the same relative module paths).  All comparisons are exact:
+the search is integer-only.
 """
 import copy
+import io
+import pickle
 
 import numpy as np
 import pytest
@@ -21,6 +26,7 @@ from pindel_tpu.genome import SPACER, Genome
 from pindel_tpu.ops import engine_fused as jx
 from pindel_tpu.reads import SplitRead
 from pindel_tpu.search import NumpyBackend, Searcher, far_end_lanes
+from pindel_tpu_torch import search as port_search
 from pindel_tpu_torch.ops import engine_fused as tx
 from pindel_tpu_torch.ops import engine_jax as tj
 from test_search_semantics import make_genome, sample_reads, ups_key
@@ -28,6 +34,31 @@ from test_search_semantics import make_genome, sample_reads, ups_key
 # one intra-op thread: the test workers share the machine's cores, and
 # torch's per-op thread pool oversubscribes them (the scan is many small ops)
 torch.set_num_threads(1)
+
+
+class _Remap(pickle.Unpickler):
+    """Unpickles objects of package ``src`` as the same classes of
+    ``dst``."""
+
+    def __init__(self, data: bytes, src: str, dst: str):
+        super().__init__(io.BytesIO(data))
+        self.src, self.dst = src, dst
+
+    def find_class(self, module, name):
+        if module == self.src or module.startswith(self.src + "."):
+            module = self.dst + module[len(self.src):]
+        return super().find_class(module, name)
+
+
+def to_port(obj):
+    """A deep copy of JAX-package host objects (settings, chromosomes,
+    reads, lanes) as the port's classes."""
+    return _Remap(pickle.dumps(obj), "pindel_tpu", "pindel_tpu_torch").load()
+
+
+def to_reference(obj):
+    """The inverse of ``to_port``."""
+    return _Remap(pickle.dumps(obj), "pindel_tpu_torch", "pindel_tpu").load()
 
 
 def run_search(settings, chrom, reads, backend=None):
@@ -38,7 +69,19 @@ def run_search(settings, chrom, reads, backend=None):
     return kept
 
 
+def run_port_search(settings, chrom, reads, backend):
+    """``run_search`` on the port's host layer: the inputs are copied into
+    the port's classes and searched by its Searcher."""
+    settings, chrom, reads = to_port((settings, chrom, reads))
+    searcher = port_search.Searcher(settings, backend=backend)
+    searcher.map_close_ends(chrom, reads)
+    kept = searcher.finalize_close_ends(reads)
+    searcher.search_far_ends(chrom, kept)
+    return kept
+
+
 def torch_backend(settings, chrom):
+    settings = to_port(settings)
     return tx.TorchFusedBackend(settings, settings.max_mismatch(), chrom.seq,
                                 chrom_name=chrom.name, device="cpu")
 
@@ -263,16 +306,16 @@ def assert_kept_equal(kept_a, kept_b):
         assert a.max_snp_error == b.max_snp_error
 
 
-def three_way(settings, chrom, reads):
-    """(NumPy oracle, FusedJaxBackend, TorchFusedBackend) kept reads."""
+def three_way(settings, chrom, reads, port_backend=None):
+    """(NumPy oracle, FusedJaxBackend, TorchFusedBackend) kept reads; the
+    last on the port's host layer, through ``port_backend`` when given."""
     reads_fx = copy.deepcopy(reads)
-    reads_tt = copy.deepcopy(reads)
+    kept_tt = run_port_search(settings, chrom, reads,
+                              port_backend or torch_backend(settings, chrom))
     kept_np = run_search(settings, chrom, reads)
     fb = jx.FusedJaxBackend(settings, settings.max_mismatch(), chrom.seq,
                             chrom_name=chrom.name)
     kept_fx = run_search(settings, chrom, reads_fx, backend=fb)
-    kept_tt = run_search(settings, chrom, reads_tt,
-                         backend=torch_backend(settings, chrom))
     return kept_np, kept_fx, kept_tt
 
 
@@ -383,7 +426,7 @@ def run_three_ways(chrom, lanes, budgets, tb=None):
     settings = Settings()
     tb = tb or torch_backend(settings, chrom)
     args = (10, [b[0] for b in budgets], [b[1] for b in budgets])
-    got = tb.run(lanes, *args)
+    got = tb.run(to_port(lanes), *args)
     fused = jx.FusedJaxBackend(settings, settings.max_mismatch(), chrom.seq,
                                chrom_name=chrom.name).run(lanes, *args)
     exp = NumpyBackend(settings, settings.max_mismatch()).run(lanes, *args)
@@ -434,7 +477,7 @@ def test_torch_backend_run_is_not_ported():
             for r in reads]
     budgets = ([3] * len(wide), [4] * len(wide))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch_backend(settings, chrom).run(wide, 10, *budgets)
+        torch_backend(settings, chrom).run(to_port(wide), 10, *budgets)
     with pytest.raises(AssertionError, match="spacer"):
         jx.FusedJaxBackend(settings, settings.max_mismatch(), chrom.seq,
                            chrom_name=chrom.name).run(wide, 10, *budgets)

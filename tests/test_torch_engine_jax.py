@@ -6,6 +6,8 @@ bit; ``TorchLaneBackend.run`` at the Searcher level against ``JaxBackend``
 and the NumPy oracle (as tests/test_engine_jax.py does for the JAX engine).
 All comparisons are exact: the search is integer-only, and the one float
 compare (the whole-read fit) gets the same host-made float32 threshold.
+Each backend runs under its own package's Searcher, on its own host
+objects.
 """
 import copy
 
@@ -21,6 +23,7 @@ from pindel_tpu.search import Searcher
 from pindel_tpu_torch.ops import engine_jax as tj
 from pindel_tpu_torch.ops.engine_fused import device_state_from_numpy
 from test_search_semantics import make_genome, sample_reads, ups_key
+from test_torch_engine import run_port_search, to_port, to_reference
 
 # one intra-op thread: the test workers share the machine's cores, and
 # torch's per-op thread pool oversubscribes them (the scan is many small ops)
@@ -115,6 +118,7 @@ def test_search_kernel_int16_offset_wraps_like_jax():
 
 
 def lane_backend(settings, chrom):
+    settings = to_port(settings)
     return tj.TorchLaneBackend(
         settings, device_state_from_numpy(chrom.seq, settings.max_mismatch(),
                                           "cpu"))
@@ -148,13 +152,12 @@ def test_lane_backend_matches_jax_and_numpy(seed):
     chrom = make_genome(rng).chromosomes[0]
     reads = sample_reads(rng, chrom, n_reads=50)
     reads_jx = copy.deepcopy(reads)
-    reads_tt = copy.deepcopy(reads)
+    before = tj.LEGACY_ROWS
+    kept_tt = run_port_search(settings, chrom, reads,
+                              lane_backend(settings, chrom))
     kept_np = run_search(settings, chrom, reads)
     kept_jx = run_search(settings, chrom, reads_jx, backend=jj.JaxBackend(
         settings, settings.max_mismatch(), chrom.seq))
-    before = tj.LEGACY_ROWS
-    kept_tt = run_search(settings, chrom, reads_tt,
-                         backend=lane_backend(settings, chrom))
     assert tj.LEGACY_ROWS > before
     assert_kept_equal(kept_tt, kept_jx)
     assert_kept_equal(kept_tt, kept_np)
@@ -168,13 +171,12 @@ def test_lane_backend_chunking_does_not_change_results():
     settings = Settings()
     chrom = make_genome(rng).chromosomes[0]
     reads = sample_reads(rng, chrom, n_reads=40)
-    reads_small = copy.deepcopy(reads)
-    kept = run_search(settings, chrom, reads,
-                      backend=lane_backend(settings, chrom))
+    kept = run_port_search(settings, chrom, reads,
+                           lane_backend(settings, chrom))
     small = lane_backend(settings, chrom)
     small.MAX_CHUNK = 7
     small.ROW_ELEMS = 3 * 512          # three reads of one lane per group
-    kept_small = run_search(settings, chrom, reads_small, backend=small)
+    kept_small = run_port_search(settings, chrom, reads, small)
     assert_kept_equal(kept_small, kept)
     assert sum(bool(r.up_far) for r in kept) > 0
 
@@ -184,14 +186,14 @@ def test_lane_backend_on_chip_smoke_lanes(scale):
     """The two-region batch chip_smoke.py runs through the legacy backend
     on the card and on the CPU (window buckets 2048 and 8192 here; the card
     also runs 32768): the CPU side equals JaxBackend and the NumPy
-    oracle."""
+    oracle, each on its own package's lanes."""
     from pindel_tpu.search import NumpyBackend
     from pindel_tpu_torch.testing.scenes import (legacy_anchors,
                                                  two_region_lanes)
     settings = Settings()
     batch = two_region_lanes(scale, 12, scale)
-    chrom, lanes, ms, tm = batch
     got = legacy_anchors(batch, "cpu")
+    chrom, lanes, ms, tm = to_reference(batch)
     want = jj.JaxBackend(settings, settings.max_mismatch(), chrom.seq) \
         .run(lanes, 10, ms, tm)
     exp = NumpyBackend(settings, settings.max_mismatch()).run(lanes, 10, ms,

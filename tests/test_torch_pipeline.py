@@ -14,10 +14,11 @@ import torch
 
 from pindel_tpu.config import Settings
 from pindel_tpu.pipeline import run_files as run_files_reference
-from pindel_tpu.profiling import g_fallback
 from pindel_tpu.testing import simulate as reference_simulate
+from pindel_tpu_torch import config as port_config
 from pindel_tpu_torch.__main__ import main
 from pindel_tpu_torch.pipeline import run_files
+from pindel_tpu_torch.profiling import g_fallback
 from pindel_tpu_torch.testing.scenes import (BAM_SCENES, SCENE1,
                                              SMALL_SCENES, bam_argv,
                                              build_bigdel, load_golden,
@@ -33,8 +34,10 @@ REPORTS = ("D", "SI", "TD", "INV", "LI", "BP", "INT", "INT_final", "RP",
            "CloseEndMapped")
 
 
-def settings_s(**fields) -> Settings:
-    s = Settings(**fields)
+def settings_s(settings_cls=Settings, **fields):
+    """Settings of the JAX package, or of the port with
+    ``settings_cls=port_config.Settings``, with -s set."""
+    s = settings_cls(**fields)
     s.report_close_mapped_reads = True       # -s
     return s
 
@@ -58,7 +61,8 @@ def test_reports_match_reference_backends(tmp_path, scene):
         "golden_reports.json is stale: rewrite it with PYTHONPATH=. "
         "python tests/test_torch_pipeline.py --write-golden")
     run_files(fa, reads_txt, str(tmp_path / "port"),
-              settings=settings_s(**fields), device="cpu")
+              settings=settings_s(port_config.Settings, **fields),
+              device="cpu")
     assert g_fallback.total > 0
     assert g_fallback.ratio() <= 0.01, (
         f"fallback ratio {g_fallback.ratio():.2%} "
