@@ -14,7 +14,12 @@ Phases, in order; any failure exits non-zero:
 2. build: the CUDA scan kernel (csrc/scan.cu) from the checkout's sources;
 3. kernel against its plain PyTorch version, both on the card, bit for bit,
    on random cases and the extremes (w = 32768, 65536 and 98304, lmax =
-   1024);
+   1024), then on rows built for each branch of the kernel
+   (testing/scan_cases.py): 0, 1 and 2 seeds, q[0] = N, windows of 0 and
+   1 lanes, seeds at the window's edges and at WE - 1, all-seeded rows at
+   w = 1536 and 32768, many seeds with valid_w > w and with qlen above the
+   dead level (lmax 1024), and the widest bucket (98304) with both branches
+   in one call;
 3b. the legacy per-lane backend (ops/engine_jax.py) on the card against the
    same backend on the CPU, on two-region BreakDancer-style lanes at the
    window buckets 2048, 8192 and 32768: equal anchors and mismatch counts;
@@ -38,8 +43,11 @@ Phases, in order; any failure exits non-zero:
    byte-identical to the plain run's (scene 2's also to the reference's
    sha256 digests in pindel_tpu_torch/testing/scene2_digests.json), with
    the median wall time, rate, fallback ratio, launches and phase timers;
-   then every recorded scan call is held against the plain version and
-   each shape is timed;
+   then every recorded scan call is held against the plain version, its
+   rows are classed by seed count (the kernel walks only the seeded lanes
+   of a row with two or more seeds, every lane of the others), each shape
+   is timed, and each call's kernel time is split between the two
+   branches' rows;
 7. scenes 1 and 2 with ``--backend mesh`` (the data-parallel backend,
    parallel/mesh_fused.py), over all visible cards (the CLI) and over
    ``["cuda:0", "cuda:0"]`` (two shards on one card, through
@@ -81,16 +89,26 @@ TIMED_RUNS = 3
 # an SM issues 64 int32 operations per clock, so a quarter of it
 PEAK_BYTES = 3.35e12
 PEAK_INT32_OPS = 67e12 / 4
-# int32 operations per candidate and step of the scan, from csrc/scan.cu:
-# pass 1 (mismatch test, N flip, count) and pass 2 (mismatch test, N flip,
-# level add, last-mismatch update, strict-bad test, key, min and runner-up
-# fold)
-PASS1_OPS = 3
+# int32 operations per candidate of the scan, as the kernel (csrc/scan.cu)
+# does the work.  Pass 1, over the read's counted steps: 7 per word of four
+# steps (funnel shift, a lop3 for the xor and mask, the add that flags the
+# nonzero bytes, two lop3 for the or and the row's masks, popc, the add to
+# the total).  Pass 2, over lsteps: 8 per step, the step's work as the plain
+# version states it (mismatch test, N flip, level add, last-mismatch
+# update, strict-bad test, key, min and second-min fold), fewer than the
+# kernel issues (about 9 per step and 5 per word).  The bound counts them
+# over the candidates a row needs: its seeded lanes when the sparse branch
+# takes it (two or more seeds; ops/scan.py:sparse_rows), every lane of
+# [0, WE) otherwise.  The earlier count took every row's valid_w lanes, at
+# 3 operations per step of pass 1
+PASS1_OPS_PER_WORD = 7
 PASS2_OPS = 8
+EARLIER_PASS1_OPS = 3
 # phase 7: the device lists of the mesh runs (None: every visible card)
 MESH_LISTS = {"all": None, "cuda0x2": ["cuda:0", "cuda:0"]}
 # what each path of the kernels line gives of its scan calls
-SCAN_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+SCAN_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "bound_dense_ms")
 
 
 def reference_modules():
@@ -167,6 +185,26 @@ RANDOM_CASES = [
     (13, 2048, 1024, 64, 0, True), (14, 65536, 1024, 2, 0, True),
     # the widest bucket an evidence window can take (w + lmax <= spacer)
     (15, 98304, 128, 2, 112, True),
+    # rows split between two warps: a launch that fills a 132-SM card at
+    # two warps per row (on such a card cases 1, 10 and 13 give each warp
+    # of a row one segment; cases 11, 12, 14 and 15 have eight warps stride
+    # a row's 2,176-lane segments)
+    (16, 4096, 128, 1280, 112, True),
+]
+# rows built for the kernel's branches: (label, seed, w, lmax, lsteps, kinds)
+BRANCH_CASES = [
+    ("every row kind", 20, 512, 128, 112, None),
+    ("every row kind, lmax 256", 21, 512, 256, 0, None),
+    ("all seeded", 22, 1536, 128, 112, ("all",) * 8 + ("random",) * 8),
+    ("all seeded", 23, 32768, 128, 112, ("all", "all", "random", "seeds1")),
+    ("widest bucket, both branches", 24, 98304, 128, 112,
+     ("random", "all", "vw0", "seeds1", "seeds2", "q0_n", "wide")),
+    # many seeds, but the seeded keys collide (valid_w > w) or pass the
+    # dead level (qlen > dead): the kernel must walk every lane
+    ("many seeds, valid_w > w", 25, 512, 128, 112,
+     ("wide",) * 4 + ("random",) * 4),
+    ("many seeds, qlen > dead", 26, 2048, 1024, 0,
+     ("long",) * 4 + ("random",) * 4),
 ]
 # two-region lanes for the legacy backend: scale -> window bucket
 LEGACY_SCALES = {1: 2048, 8: 8192, 40: 32768}
@@ -189,22 +227,40 @@ def compare(args, kw, scan_cuda, scan_rows_ref) -> int:
     return err
 
 
-def scan_bound(args, kw):
+def row_classes(args, kw):
+    """Seeds per row and the rows the kernel walks on its sparse branch
+    (two or more seeds; ops/scan.py:sparse_rows)."""
+    from pindel_tpu_torch.ops.scan import seed_counts, sparse_rows
+    tiles, qq, valid_w, qlen, _thr, off = args
+    seeds = seed_counts(tiles, qq, valid_w, off, lmax=kw["lmax"])
+    return seeds, sparse_rows(seeds, valid_w, qlen, w=kw["w"],
+                              lmax=kw["lmax"], lsteps=kw["lsteps"])
+
+
+def scan_bound(args, kw, seeds, sparse):
     """The least time the card could take for one scan call, from its
-    inputs: the int32 operations its valid candidates need (pass 1 over
-    the read's steps, pass 2 over ``lsteps``) at PEAK_INT32_OPS, or each
-    input byte read and each output byte written once at PEAK_BYTES,
-    whichever is longer.  Returns (ms, "operations" or "bytes")."""
+    inputs: the int32 operations its rows need (pass 1 over the read's
+    steps, pass 2 over ``lsteps``, on the seeded lanes of a sparse row and
+    on every lane of [0, WE) of the others) at PEAK_INT32_OPS, or each input
+    byte read and each output byte written once at PEAK_BYTES, whichever is
+    longer.  Returns (ms, "operations" or "bytes", and the earlier
+    valid-lane count, which takes every row's ``valid_w`` lanes as
+    candidates at EARLIER_PASS1_OPS per step of pass 1, in ms)."""
     tiles, qq, valid_w, qlen, thr = args[:5]
     lsteps = kw["lsteps"] or kw["lmax"]
-    vw = valid_w.long().cpu()
-    steps1 = (torch.clamp(qlen.long().cpu(), max=lsteps) - 1).clamp(min=0)
-    ops = int((vw * (steps1 * PASS1_OPS + lsteps * PASS2_OPS)).sum())
+    we = tiles.shape[1] - kw["lmax"]
+    steps1 = (torch.clamp(qlen.double(), max=lsteps) - 1).clamp(min=0)
+    per_lane = steps1 * PASS1_OPS_PER_WORD / 4 + lsteps * PASS2_OPS
+    lanes = torch.where(sparse, seeds, we)
+    ops = float((lanes * per_lane).sum())
+    earlier = steps1 * EARLIER_PASS1_OPS + lsteps * PASS2_OPS
+    dense_ops = float((valid_w.double() * earlier).sum())
     nbytes = (sum(a.numel() * a.element_size() for a in args)
               + 2 * tiles.shape[0] * kw["lmax"] * 4)
     t_ops, t_bytes = ops / PEAK_INT32_OPS, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
+            "operations" if t_ops >= t_bytes else "bytes",
+            max(dense_ops / PEAK_INT32_OPS, t_bytes) * 1e3)
 
 
 def time_ms(fn, reps: int) -> float:
@@ -251,6 +307,7 @@ def main() -> int:
     from pindel_tpu_torch.__main__ import main as port_main
     from pindel_tpu_torch.ops import engine_fused, engine_jax, scan_cuda
     from pindel_tpu_torch.ops.scan import scan_rows_ref
+    from pindel_tpu_torch.testing.scan_cases import KINDS, branch_case
     from pindel_tpu_torch.pipeline import g_fallback, g_timer, run_files
     from pindel_tpu_torch.testing.scenes import (BAM_SCENES, SCENE1,
                                                  SCENE1_FLAGS, SCENE2,
@@ -283,7 +340,7 @@ def main() -> int:
     info = scan_cuda.build(force=True, ptxas_info=True)
     log(f"build: scan kernel built in {time.monotonic() - t0:.3f} s")
     for line in info.splitlines():
-        if "registers" in line or "spill" in line:
+        if any(k in line for k in ("entry function", "registers", "spill")):
             log("  ptxas: " + line.strip())
 
     dev = torch.device("cuda")
@@ -298,6 +355,20 @@ def main() -> int:
         max_err = max(max_err, err)
     if max_err:
         fail(f"kernel disagrees with its plain version (max {max_err})")
+    for label, seed, w, lmax, lsteps, kinds in BRANCH_CASES:
+        case = [torch.from_numpy(a).to(dev)
+                for a in branch_case(seed, w, lmax, kinds or KINDS * 4)]
+        kw = dict(w=w, lmax=lmax, mpm=3, lsteps=lsteps)
+        seeds, sparse = row_classes(case, kw)
+        err = compare(case, kw, scan_cuda, scan_rows_ref)
+        log(f"kernel vs plain, {label}: w={w} lmax={lmax} rows="
+            f"{len(seeds)} ({int(sparse.sum())} sparse, "
+            f"{int((~sparse).sum())} dense, seeds per row "
+            f"{int(seeds.min())}-{int(seeds.max())}) max_abs_err={err}")
+        max_err = max(max_err, err)
+        if err:
+            fail(f"kernel disagrees with its plain version on {label} "
+                 f"(max {err})")
 
     # ---- 3b. legacy per-lane backend: card against CPU
     for scale, bucket in LEGACY_SCALES.items():
@@ -393,49 +464,86 @@ def main() -> int:
         finally:
             engine_fused.scan_rows = kernel_scan
 
-    def check_calls(label, calls):
+    def check_calls(label, calls, split=False):
         """Every recorded scan call against the plain version on the card
-        it ran on, and the kernel, plain and bound times of each shape;
-        fails on any difference.  Returns the max error and the times at
-        the largest shape."""
+        it ran on, its row classes, and the kernel, plain and bound times of
+        each shape (with ``split``, the kernel time of each call's sparse
+        and dense rows, each subset timed as a call of its own); fails on
+        any difference.  Returns the max error and the times at the largest
+        shape."""
         if not calls:
             fail(f"{label}: the main path made no scan call")
         err_all = 0
         timings = {}
+        split_ms = {"sparse": 0.0, "dense": 0.0}
         for cargs, kw in calls:
             with torch.cuda.device(cargs[0].device):
                 err = compare(cargs, kw, scan_cuda, scan_rows_ref)
                 err_all = max(err_all, err)
                 rows, t = cargs[0].shape
+                seeds, sparse = row_classes(cargs, kw)
+                classes = (f"rows with 0/1/>=2 seeds "
+                           f"{int((seeds == 0).sum())}/"
+                           f"{int((seeds == 1).sum())}/"
+                           f"{int((seeds >= 2).sum())}, valid_w = 0 "
+                           f"{int((cargs[2] == 0).sum())}, mean seeds "
+                           f"{float(seeds.double().mean()):.1f}")
+                if split:
+                    parts = {}
+                    for branch, mask in (("sparse", sparse),
+                                         ("dense", ~sparse)):
+                        idx = mask.nonzero().flatten()
+                        sub = [x.index_select(0, idx).contiguous()
+                               for x in cargs]
+                        parts[branch] = (time_ms(
+                            lambda: scan_cuda.scan_rows_cuda(*sub, **kw), 5)
+                            if len(idx) else 0.0)
+                        split_ms[branch] += parts[branch]
+                    classes += (f"; kernel on the sparse rows "
+                                f"{parts['sparse']:.4f} ms, on the dense "
+                                f"rows {parts['dense']:.4f} ms")
+                log(f"{label} scan call w={kw['w']} rows={rows}: {classes}, "
+                    f"max_abs_err={err}  [{card}]")
                 shape = (kw["w"], kw["lmax"], kw["lsteps"], rows)
                 if shape in timings:
                     continue
                 ms = time_ms(lambda: scan_cuda.scan_rows_cuda(*cargs, **kw),
                              10)
                 plain = time_ms(lambda: scan_rows_ref(*cargs, **kw), 2)
-            bound, bound_by = scan_bound(cargs, kw)
+                bound, bound_by, bound_dense = scan_bound(cargs, kw, seeds,
+                                                          sparse)
             timings[shape] = dict(rows=rows, lanes=t - kw["lmax"], ms=ms,
                                   plain_ms=plain, bound_ms=bound,
-                                  bound_by=bound_by, w=kw["w"],
+                                  bound_by=bound_by,
+                                  bound_dense_ms=bound_dense, w=kw["w"],
                                   lsteps=kw["lsteps"])
             log(f"{label} scan w={kw['w']} lmax={kw['lmax']} "
                 f"lsteps={kw['lsteps']} rows={rows} on "
                 f"{cargs[0].device}: kernel {ms:.4f} ms, plain "
                 f"{plain:.3f} ms, bound {bound:.4f} ms ({bound_by}), "
-                f"max_abs_err={err}  [{card}]")
+                f"{bound / ms:.1%} of it, max_abs_err={err}  [{card}]")
         log(f"kernel vs plain on all {len(calls)} {label} scan calls: "
             f"max_abs_err={err_all}")
         if err_all:
             fail(f"{label}: kernel disagrees with its plain version on "
                  f"main-path inputs (max {err_all})")
+        if split:
+            total = split_ms["sparse"] + split_ms["dense"]
+            log(f"{label}: kernel time over all calls split by branch: "
+                f"sparse rows {split_ms['sparse']:.4f} ms, dense rows "
+                f"{split_ms['dense']:.4f} ms ({split_ms['dense'] / total:.1%}"
+                f")  [{card}]")
         main_shape = max(timings.values(),
                          key=lambda t: t["rows"] * t["lanes"])
         log(f"{label}: scan timing reported at the main path's largest "
             f"shape: {main_shape['lanes']} lanes x {main_shape['rows']} "
             f"rows, w={main_shape['w']} lsteps={main_shape['lsteps']}: "
             f"kernel {main_shape['ms']:.4f} ms, bound "
-            f"{main_shape['bound_ms']:.4f} ms ({main_shape['bound_by']}), "
-            f"{main_shape['bound_ms'] / main_shape['ms']:.1%} of it  [{card}]")
+            f"{main_shape['bound_ms']:.4f} ms ({main_shape['bound_by']}, "
+            f"seeded lanes of sparse rows, every lane of dense rows), "
+            f"{main_shape['bound_ms'] / main_shape['ms']:.1%} of it; the "
+            f"valid-lane count (every row's valid_w lanes) "
+            f"{main_shape['bound_dense_ms']:.4f} ms  [{card}]")
         return dict(main_shape, max_abs_err=err_all)
 
     def full_scene(label, argv_of, n, unit, check_reports):
@@ -497,7 +605,7 @@ def main() -> int:
             log(f"  phase {pname:<52s} {sec:9.3f} s  [{card}]")
 
         # d. every recorded main-path call: kernel vs plain, time per shape
-        scan = check_calls(label, calls)
+        scan = check_calls(label, calls, split=True)
         del calls
         torch.cuda.empty_cache()
 
@@ -738,7 +846,8 @@ def main() -> int:
                     max_abs_err=max_err,
                     ms=scene1["ms"], plain_ms=scene1["plain_ms"],
                     bound_ms=scene1["bound_ms"],
-                    bound_by=scene1["bound_by"], library_ms=None,
+                    bound_by=scene1["bound_by"],
+                    bound_dense_ms=scene1["bound_dense_ms"], library_ms=None,
                     paths=paths)]
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -105,6 +105,28 @@ def scan_rows_ref(tiles, qq, valid_w, qlen, thr, off=None,
     return kmin, k2
 
 
+def seed_counts(tiles, qq, valid_w, off, *, lmax: int):
+    """Seeded candidates per row ([R] int64): lanes c in [off, off +
+    valid_w) of [0, WE) with ``tile[c] == q[0]`` and ``q[0] != N``."""
+    we = tiles.shape[1] - lmax
+    widx = torch.arange(we, dtype=torch.int32, device=tiles.device)[None, :]
+    off_c = off.to(torch.int32)[:, None]
+    q0 = qq[:, 0:1]
+    seeded = ((tiles[:, :we] == q0) & (widx >= off_c)
+              & (widx < off_c + valid_w.to(torch.int32)[:, None]))
+    return seeded.sum(dim=1) * (q0[:, 0] != dna.N)
+
+
+def sparse_rows(seeds, valid_w, qlen, *, w: int, lmax: int, lsteps: int = 0):
+    """Rows whose min and second min are decided by their seeded lanes
+    alone (the kernel's sparse branch): two or more seeds, distinct seeded
+    keys (``valid_w <= w``) and seeded levels below ``dead``
+    (``min(lsteps, qlen) <= dead``)."""
+    lsteps = lsteps or lmax
+    return ((seeds >= 2) & (valid_w <= w)
+            & (torch.clamp(qlen, max=lsteps) <= dead_level(lmax)))
+
+
 def scan_rows(tiles, qq, valid_w, qlen, thr, off=None,
               *, w: int, lmax: int, mpm: int, lsteps: int = 0):
     """Device dispatch of the scan (counterpart of ``_scan_rows``)."""

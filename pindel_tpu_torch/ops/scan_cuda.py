@@ -62,17 +62,21 @@ def build(force: bool = False, ptxas_info: bool = False) -> str:
     return res.stderr
 
 
+def load(path: str) -> ctypes.CDLL:
+    """A built scan library with its entry point's signature bound."""
+    lib = ctypes.CDLL(path)
+    lib.pt_scan_rows.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
+                                 + [ctypes.c_void_p])
+    lib.pt_scan_rows.restype = ctypes.c_int
+    return lib
+
+
 def _lib() -> ctypes.CDLL:
     global _LIB
     with _LOCK:
         if _LIB is None:
             build()
-            lib = ctypes.CDLL(LIBRARY)
-            lib.pt_scan_rows.argtypes = ([ctypes.c_void_p] * 8
-                                         + [ctypes.c_int] * 9
-                                         + [ctypes.c_void_p])
-            lib.pt_scan_rows.restype = ctypes.c_int
-            _LIB = lib
+            _LIB = load(LIBRARY)
         return _LIB
 
 
