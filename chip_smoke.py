@@ -24,8 +24,8 @@ Phases, in order; any failure exits non-zero:
    same backend on the CPU, on two-region BreakDancer-style lanes at the
    window buckets 2048, 8192 and 32768: equal anchors and mismatch counts;
    then the largest batch it takes in one call (8,192 reads x 4 lanes at
-   w = 32768), timed, with its peak device memory, and held against the
-   CPU on a sample of its reads;
+   w = 32768), timed, with its peak device memory and its bound
+   (``legacy_bound``), and held against the CPU on a sample of its reads;
 4. the CLI on small simulated pindel-text scenes: reports byte-identical to
    the golden files that pindel_tpu's NumPy backend wrote for them
    (pindel_tpu_torch/testing/golden_reports.json, kept current by
@@ -58,7 +58,23 @@ Phases, in order; any failure exits non-zero:
    reverse), every listed card launching the kernel, reports
    byte-identical to the kernel runs of 5 and 6 (scene 2's also to the
    digests), with the median wall time, rate, scan launches per card and
-   phase timers of each.
+   phase timers of each;
+8. multi-process window sharding (``--hosts``, parallel/multihost.py),
+   through ``run_files_multihost`` in this process as rank 0 (its workers
+   are fresh interpreters, each on the card ``rank_devices`` gives it):
+   a. scene 1 at its own flags (two windows, 5 Mb and 1 Mb, one per rank)
+      at ``--hosts 2``, once with ``--dist files`` and once with
+      ``store``: reports byte-identical to the kernel runs of 5, rank 0's
+      recorded scan calls held against the plain version on the card, and
+      every rank that owned a window launched the kernel on its own card;
+   b. scene 2 at ``--hosts 2`` (one window: rank 1 owns none): reports
+      byte-identical to phase 6 and to the digests;
+   c. timed runs in turns, median of three: scene 1 at ``-w 1`` (six
+      windows) at ``--hosts`` 1, 2 and 3 (files), scene 2 at ``-w 0.5``
+      (four windows) at ``--hosts`` 1 and 2 (store); the multi-process
+      reports equal the one-process ones; the wall and rate of each, and
+      each rank's devices, windows, launches, memory, wall and time from
+      its spawn to its first shipped window.
 
 The script imports torch, numpy and pindel_tpu_torch, and no jax.
 ``--profile-dir`` also traces one run of each full-size scene with
@@ -106,6 +122,12 @@ PASS2_OPS = 8
 EARLIER_PASS1_OPS = 3
 # phase 7: the device lists of the mesh runs (None: every visible card)
 MESH_LISTS = {"all": None, "cuda0x2": ["cuda:0", "cuda:0"]}
+# phase 8c: (label, scene, extra flags, --dist, the --hosts values in turn)
+HOSTS_TIMED = [("scene1", "scene 1", ["-w", "1"], "files", (1, 2, 3)),
+               ("scene2", "scene 2", ["-w", "0.5"], "store", (1, 2))]
+# the timer phases phase 8c prints for each rank
+HOSTS_PHASES = ("Matching close ends", "multihost: wait for worker windows",
+                "Searching far ends", "Searching and reporting variations")
 # what each path of the kernels line gives of its scan calls
 SCAN_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "bound_dense_ms")
@@ -212,6 +234,12 @@ LEGACY_SCALES = {1: 2048, 8: 8192, 40: 32768}
 # lanes at w = 32768), held against the CPU on LEGACY_SAMPLE of its reads
 LEGACY_FULL_SCALE = 40
 LEGACY_SAMPLE = 32
+# int32 operations per candidate and step of the legacy scan (K8) as its
+# torch statement does them (ops/engine_jax.py:_search_kernel): mismatch
+# test, N flip, add, last-mismatch update, end capture, level (budget test,
+# and, select), budget select and min, compare and count at the min, compare
+# and count under the runner-up limit, argmax (convert and compare)
+LEGACY_OPS = 17
 
 
 def compare(args, kw, scan_cuda, scan_rows_ref) -> int:
@@ -261,6 +289,38 @@ def scan_bound(args, kw, seeds, sparse):
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes",
             max(dense_ops / PEAK_INT32_OPS, t_bytes) * 1e3)
+
+
+def legacy_bound(chrom, lanes, w: int, lmax: int):
+    """The least time the card could take for ``TorchLaneBackend.run`` over
+    ``lanes`` at window bucket ``w`` and ``lmax``: LEGACY_OPS int32
+    operations per seeded candidate (a valid offset whose reference base is
+    the query's first, as the kernel's tile is read) and per step 1..qlen-1
+    of its read, at PEAK_INT32_OPS, or the tiles and queries read and the
+    packed output written once at PEAK_BYTES, whichever is longer.  Returns
+    (ms, "operations" or "bytes", and the count from the shapes alone: every
+    candidate of the [B, NL, W] state for lmax steps, in ms)."""
+    from pindel_tpu_torch import dna
+    seq = np.asarray(chrom.seq)
+    nl = max(len(read_lanes) for read_lanes in lanes)
+    ops = 0.0
+    for read_lanes in lanes:
+        steps = max(len(read_lanes[0].query) - 1, 0)
+        for lane in read_lanes:
+            valid = min(max(lane.end - lane.start, 0), w)
+            if lane.forward:
+                q0, ref = lane.query[0], seq[lane.start:lane.start + valid]
+            else:
+                q0, ref = lane.query[-1], seq[lane.end - valid:lane.end]
+            if q0 != dna.N:
+                ops += float(np.count_nonzero(ref == q0)) * steps * LEGACY_OPS
+    b = len(lanes)
+    nbytes = b * nl * (w + 2 * lmax) + b * (5 * lmax + 2)
+    t_ops, t_bytes = ops / PEAK_INT32_OPS, nbytes / PEAK_BYTES
+    dense = b * nl * w * lmax * LEGACY_OPS / PEAK_INT32_OPS
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes",
+            max(dense, t_bytes) * 1e3)
 
 
 def time_ms(fn, reps: int) -> float:
@@ -417,12 +477,18 @@ def main() -> int:
     hits = sum(bool(key) for key, _ in on_card)
     if hits == 0:
         fail("legacy backend full batch: no read found a far end")
+    bound, bound_by, bound_shapes = legacy_bound(chrom, lanes, 32768, 128)
     log(f"legacy backend full batch w=32768: {n_full} reads x 4 lanes, "
         f"{hits} with anchors, card equal to CPU on {len(sample)} sampled "
         f"reads; card {card_s:.3f} s ({n_full / card_s:.1f} reads/s), CPU "
         f"{cpu_s:.3f} s for the sample, peak device memory above the "
         f"baseline {peak / 2 ** 20:.1f} MiB (row groups of "
         f"{engine_jax.TorchLaneBackend.ROW_ELEMS} candidates)  [{card}]")
+    log(f"legacy backend full batch bound: {bound:.3f} ms ({bound_by}; "
+        f"{LEGACY_OPS} int32 operations per seeded candidate and step), "
+        f"{bound / (card_s * 1e3):.2%} of the card's {card_s:.3f} s; from the "
+        f"shapes alone (every candidate of [B, NL, W] for lmax steps) "
+        f"{bound_shapes:.3f} ms  [{card}]")
     for pname, sec in sorted(phases.items(), key=lambda kv: -kv[1]):
         log(f"  phase {pname:<52s} {sec:9.3f} s  [{card}]")
     del chrom, lanes, on_card
@@ -832,12 +898,164 @@ def main() -> int:
                             str(k): v for k, v in med["by_card"].items()},
                         wall=med["wall"], fused_wall=fused_med)
 
+        # ---- 8. multi-process window sharding, rank 0 in this process
+        from pindel_tpu_torch.parallel import multihost
+
+        def run_hosts(argv, hosts, dist) -> float:
+            """One run of ``argv`` through run_files_multihost at ``hosts``
+            ranks; wall seconds."""
+            a = build_parser().parse_args(argv)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.monotonic()
+            multihost.run_files_multihost(
+                a.fasta, a.pindel_file, a.output_prefix,
+                settings_from_args(a), a.backend, hosts,
+                pindel_config=a.pindel_config, bam_config=a.config,
+                dist=dist, device=a.device)
+            torch.cuda.synchronize()
+            return time.monotonic() - t0
+
+        def rank_records(label, hosts):
+            """The ranks' records of the last run: every rank that owned a
+            window launched the kernel on each card of its devices and on
+            no other card; a rank without windows launched nothing.  At
+            one rank, this process's counts since reset_counts()."""
+            if hosts == 1:
+                return [dict(rank=0, devices=["cuda:0"], windows=None,
+                             launches_by_card={
+                                 str(k): v for k, v in sorted(
+                                     scan_cuda.LAUNCHES_BY_DEVICE.items())},
+                             started_s=0.0, ready_s=0.0, first_window_s=None,
+                             peak_alloc_mib=None, card_used_mib=None)]
+            ranks = [dict(r) for r in multihost.LAST_RANKS]
+            if [r["rank"] for r in ranks] != list(range(hosts)):
+                fail(f"{label}: rank records {ranks}")
+            for r in ranks:
+                cards = {str(torch.device(d).index) for d in r["devices"]}
+                got = r["launches_by_card"]
+                if r["windows"] and (set(got) != cards
+                                     or not all(got.values())):
+                    fail(f"{label}: rank {r['rank']} owned windows "
+                         f"{r['windows']} on {r['devices']} but launched "
+                         f"the kernel {got} by card")
+                if not r["windows"] and got:
+                    fail(f"{label}: rank {r['rank']} owned no window but "
+                         f"launched {got}")
+            return ranks
+
+        def log_ranks(label, ranks):
+            for r in ranks:
+                first = ("-" if r["first_window_s"] is None
+                         else f"{r['first_window_s']:.3f} s")
+                mem = ("" if r["peak_alloc_mib"] is None else
+                       f", allocator peak {r['peak_alloc_mib']:.1f} MiB, card "
+                       f"memory used at its end {r['card_used_mib']:.1f} MiB")
+                wall = f"{r['wall_s']:.3f} s" if "wall_s" in r else "-"
+                log(f"{label} rank {r['rank']}: devices {r['devices']}, "
+                    f"windows {r['windows']}, scan launches by card "
+                    f"{r['launches_by_card']}, wall {wall}, spawn to "
+                    f"imports done {r['started_s']:.3f} s, to pipeline ready "
+                    f"{r['ready_s']:.3f} s, to first shipped window "
+                    f"{first}{mem}  [{card}]")
+
+        def launches_of(ranks):
+            return sum(sum(r["launches_by_card"].values()) for r in ranks)
+
+        hosts_paths = {}
+        # a. scene 1 at --hosts 2 over both transports, rank 0's scan
+        # calls recorded
+        for dist in ("files", "store"):
+            label = f"scene 1 --hosts 2 --dist {dist}"
+            argv = argv1(f"hosts2_{dist}")
+            reset_counts()
+            wall, calls = recorded(lambda: run_hosts(argv, 2, dist))
+            if reports(prefix_of(argv)) != scene1["want"]:
+                fail(f"{label}: reports differ from the kernel runs of "
+                     "phase 5")
+            ranks = rank_records(label, 2)
+            if not all(r["windows"] for r in ranks):
+                fail(f"{label}: a rank owned no window: {ranks}")
+            log(f"{label}: wall {wall:.3f} s, {n1 / wall:.1f} reads/s, "
+                f"reports byte-identical to phase 5, scan launches "
+                f"{launches_of(ranks)}  [{card}]")
+            log_ranks(label, ranks)
+            scan = check_calls(f"{label} rank 0", calls)
+            max_err = max(max_err, scan["max_abs_err"])
+            del calls
+            torch.cuda.empty_cache()
+            hosts_paths[f"scene1_hosts2_{dist}"] = dict(
+                {k: scan[k] for k in SCAN_KEYS}, launches=launches_of(ranks),
+                launches_by_rank=[r["launches_by_card"] for r in ranks],
+                wall=wall)
+
+        # b. scene 2 at --hosts 2: one window, so rank 1 ships nothing
+        label = "scene 2 --hosts 2 --dist files"
+        argv = argv2("hosts2_files")
+        reset_counts()
+        wall = run_hosts(argv, 2, "files")
+        got = reports(prefix_of(argv))
+        if got != scene2["want"] or digests(got) != want_digests:
+            fail(f"{label}: reports differ from phase 6 or the digests")
+        ranks = rank_records(label, 2)
+        if ranks[1]["windows"]:
+            fail(f"{label}: rank 1 owned windows {ranks[1]['windows']}")
+        log(f"{label}: wall {wall:.3f} s, {n2 / wall:.1f} read pairs/s, "
+            f"reports byte-identical to phase 6 and the digests, scan "
+            f"launches {launches_of(ranks)}  [{card}]")
+        log_ranks(label, ranks)
+        hosts_paths["scene2_hosts2_files"] = dict(
+            launches=launches_of(ranks),
+            launches_by_rank=[r["launches_by_card"] for r in ranks],
+            wall=wall)
+
+        # c. timed runs in turns at more windows
+        for key, label, flags, dist, counts in HOSTS_TIMED:
+            argv_of = argv1 if key == "scene1" else argv2
+            n, unit = (n1, "reads") if key == "scene1" else (n2, "read pairs")
+            runs = {h: [] for h in counts}
+            want = None
+            for i in range(TIMED_RUNS):
+                for hosts in (counts if i % 2 == 0 else counts[::-1]):
+                    hlabel = f"{label} {' '.join(flags)} --hosts {hosts}"
+                    argv = argv_of(f"timed_h{hosts}_{i}") + flags
+                    reset_counts()
+                    wall = run_hosts(argv, hosts, dist)
+                    got = reports(prefix_of(argv))
+                    if want is None:
+                        want = got          # the first run is --hosts 1
+                    elif got != want:
+                        fail(f"{hlabel} run {i}: reports differ from "
+                             "--hosts 1")
+                    ranks = rank_records(hlabel, hosts)
+                    runs[hosts].append(dict(wall=wall, ranks=ranks,
+                                            phases=g_timer.items()))
+                    log(f"{hlabel} --dist {dist} run {i}: wall {wall:.3f} s, "
+                        f"{n / wall:.1f} {unit}/s, scan launches "
+                        f"{launches_of(ranks)}  [{card}]")
+                    log_ranks(f"{hlabel} run {i}", ranks)
+            for hosts in counts:
+                walls = [r["wall"] for r in runs[hosts]]
+                med = runs[hosts][walls.index(statistics.median(walls))]
+                log(f"{label} {' '.join(flags)} --hosts {hosts} --dist "
+                    f"{dist}: median wall {med['wall']:.3f} s of "
+                    f"{TIMED_RUNS} in turns ({n / med['wall']:.1f} {unit}/s"
+                    f"), reports equal to --hosts 1, scan launches "
+                    f"{launches_of(med['ranks'])}  [{card}]")
+                for r in med["ranks"]:
+                    phases = r.get("phases") or med["phases"]
+                    for pname in HOSTS_PHASES:
+                        log(f"  rank {r['rank']} phase {pname:<40s} "
+                            f"{phases.get(pname, 0.0):9.3f} s  [{card}]")
+                hosts_paths[f"{key}_timed_hosts{hosts}"] = dict(
+                    launches=launches_of(med["ranks"]), wall=med["wall"])
+
     loaded = reference_modules()
     if loaded:
         fail(f"a run loaded {loaded}")
     paths = {label: {k: v[k] for k in ("launches", *SCAN_KEYS, "wall")}
              for label, v in (("scene1", scene1), ("scene2", scene2))}
     paths.update(mesh_paths)
+    paths.update(hosts_paths)
     # K1 at scene 1's largest main-path shape; launches over every path
     kernels = [dict(name="scan_rows", route="cuda",
                     source="pindel_tpu_torch/csrc/scan.cu",

@@ -4,8 +4,11 @@
 The flags are those of ``python -m pindel_tpu`` (reference CLI,
 fn_parameters.cpp:17-351), plus ``--device`` (default ``cuda``);
 ``--backend`` takes ``fused`` (one device) or ``mesh`` (data-parallel over
-every visible card), the reference's names for the two.  ``--hosts > 1``
-and ``-x > 4`` stop with an error that names their ROADMAP item.
+every visible card), the reference's names for the two.  ``--hosts N``
+shards the windows over N processes, each on its own card
+(parallel/multihost.py), with ``--dist files`` or ``store`` (``jax``, the
+reference's name, means ``store``).  ``-x > 4`` stops with an error that
+names its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -117,8 +120,17 @@ def build_parser() -> argparse.ArgumentParser:
                help="accepted for CLI parity; a no-op in the reference too "
                     "(pindel.cpp:2006)")
     ap.add_argument("--hosts", type=int, default=1,
-                    help="shard windows across N processes (not ported "
-                         "yet; only 1)")
+                    help="shard windows across N processes: rank w %% N "
+                         "searches window w, rank 0 reports every window; "
+                         "with --device cuda rank r takes card r %% count "
+                         "(parallel/multihost.py)")
+    ap.add_argument("--dist", choices=["files", "store", "jax"],
+                    default="files",
+                    help="--hosts transport: 'files' spools packed anchor "
+                         "tables through a directory; 'store' sends them "
+                         "through a torch.distributed TCPStore served by "
+                         "rank 0 (parallel/distspool.py); 'jax', the "
+                         "reference's name, means 'store'")
     ap.add_argument("--device", default="cuda",
                     help="torch device of the search: cuda (default) or "
                          "cpu; cuda without a card is an error")
@@ -209,10 +221,18 @@ def main(argv=None) -> int:
         return run_dd_files(args.fasta, args.config, args.output_prefix,
                             settings=s, device=args.device,
                             backend=args.backend)
-    if args.hosts > 1:
-        ap.error("--hosts > 1 is not ported to pindel_tpu_torch yet "
-                 "(ROADMAP Queue 1 item 11)")
     check()
+    if args.hosts > 1:
+        if s.report_only_close_mapped_reads:
+            ap.error("-S is single-process (it is itself the two-phase "
+                     "checkpoint); drop --hosts")
+        from pindel_tpu_torch.parallel.multihost import run_files_multihost
+        run_files_multihost(args.fasta, args.pindel_file,
+                            args.output_prefix, s, args.backend,
+                            args.hosts, pindel_config=args.pindel_config,
+                            bam_config=args.config, dist=args.dist,
+                            device=args.device)
+        return 0
     run_files(args.fasta, args.pindel_file, args.output_prefix,
               settings=s, device=args.device, bam_config=args.config,
               pindel_config=args.pindel_config, backend=args.backend)

@@ -863,8 +863,9 @@ def run_files(reference_fa: str, pindel_file: Optional[str],
               output_prefix: str, settings: Optional[Settings] = None,
               device="cuda", bam_config: Optional[str] = None,
               pindel_config: Optional[str] = None, backend: str = "fused",
-              devices: Optional[Sequence] = None) -> Settings:
-    """Convenience entry: -f/-p|-i|-P/-o equivalent on torch devices."""
+              devices: Optional[Sequence] = None, spool=None) -> Settings:
+    """Convenience entry: -f/-p|-i|-P/-o equivalent on torch devices;
+    ``spool`` shards the windows over processes (parallel/multihost.py)."""
     s = settings or Settings()
     check_supported(s)
     s.reference_filename = reference_fa
@@ -881,7 +882,7 @@ def run_files(reference_fa: str, pindel_file: Optional[str],
         g_log.redirect(s.log_filename)
     genome = Genome.from_fasta(reference_fa)
     pipe = Pipeline(s, genome, backend_factory=factory)
-    pipe.spool = None                     # one process: no window sharding
+    pipe.spool = spool                    # multi-process window sharding
     pipe.create_output_files()
     # the detectors run a Python re-statement when their native library
     # fails to load; load it here so a failed build raises

@@ -146,13 +146,15 @@ def test_cli_cuda_without_card_raises(tmp_path):
               "--device", "cuda"])
 
 
-@pytest.mark.parametrize("flags", [["--hosts", "2"], ["-x", "5"]])
-def test_cli_refuses_unported_modes(tmp_path, capsys, flags):
+@pytest.mark.parametrize("flags,why", [
+    (["--hosts", "2", "-S"], "-S is single-process"),
+    (["-x", "5"], "ROADMAP")])
+def test_cli_refuses_unported_modes(tmp_path, capsys, flags, why):
     with pytest.raises(SystemExit) as exc:
         main(["-f", "ref.fa", "-p", "reads.txt", "-o", str(tmp_path / "x"),
               "--device", "cpu", *flags])
     assert exc.value.code == 2
-    assert "ROADMAP" in capsys.readouterr().err
+    assert why in capsys.readouterr().err
 
 
 def write_golden() -> None:
