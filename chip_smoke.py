@@ -11,7 +11,9 @@ Phases, in order; any failure exits non-zero:
    and no jax (checked again at the end);
 1. environment: torch, CUDA and nvcc versions, the card's name and power
    limit, the host's CPU model and core count;
-2. build: the CUDA scan kernel (csrc/scan.cu) from the checkout's sources;
+2. build: the CUDA scan kernel (csrc/scan.cu) and the shard kernel of the
+   window-parallel search (csrc/sharded_search.cu) from the checkout's
+   sources, one nvcc for each, started together;
 3. kernel against its plain PyTorch version, both on the card, bit for bit,
    on random cases and the extremes (w = 32768, 65536 and 98304, lmax =
    1024), then on rows built for each branch of the kernel
@@ -74,7 +76,21 @@ Phases, in order; any failure exits non-zero:
       (four windows) at ``--hosts`` 1 and 2 (store); the multi-process
       reports equal the one-process ones; the wall and rate of each, and
       each rank's devices, windows, launches, memory, wall and time from
-      its spawn to its first shipped window.
+      its spawn to its first shipped window;
+9. the window-parallel search (K9, parallel/mesh.py), which no CLI reaches:
+   a. the shard kernel against its plain twin, bit for bit, on every case
+      of testing/shard_cases.py (DEAD and 2^30 representatives, clamped
+      shard tiles, backward lanes, strict mismatches next to step 0,
+      columns past 32768) and random rows, every shard at wp 1, 2, 4, 8;
+   b. ``TorchShardedBackend`` under a ``Searcher`` on a small scene against
+      the NumPy oracle, over ``["cuda:0"] * 8`` at (dp, wp) = (2, 4),
+      (1, 8), (4, 2) and over every visible card;
+   c. phase 3b's full batch at (1, 1) and (1, 4) over cuda:0: anchors
+      equal to K8's, its sampled reads equal to the twin's; every kernel
+      call held against the twin over all its rows, timed, with its bound
+      (``shard_bound``), the wall, launches and peak memory;
+   d. ``--backend numpy`` and ``--backend jax`` on the 16 small scenes
+      against the golden reports.
 
 The script imports torch, numpy and pindel_tpu_torch, and no jax.
 ``--profile-dir`` also traces one run of each full-size scene with
@@ -84,6 +100,7 @@ JSON result.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import json
 import os
 import platform
@@ -128,6 +145,22 @@ HOSTS_TIMED = [("scene1", "scene 1", ["-w", "1"], "files", (1, 2, 3)),
 # the timer phases phase 8c prints for each rank
 HOSTS_PHASES = ("Matching close ends", "multihost: wait for worker windows",
                 "Searching far ends", "Searching and reporting variations")
+# phase 9: the window-parallel search (K9).  int32 operations of the shard
+# kernel (csrc/sharded_search.cu) as it does the work: per candidate of its
+# columns the seed test (the lane and column split, the key, the tile
+# position, the byte load, the valid-column and seed compares); per step
+# that a seeded candidate walks (to the step that kills it, or the last):
+# the tile byte load, the strict compare, the N compare, the xor and add to
+# its count, the last-mismatch select, the death compare, the level slot's
+# address, the count atomic, the key-level compare, the strict bit's compare
+# and or, the key atomic
+SHARD_SEED_OPS = 7
+SHARD_STEP_OPS = 13
+# the grids of the backend runs over ["cuda:0"] * 8, and the wp of the
+# full-width runs over cuda:0 (dp = 1)
+SHARD_GRIDS = [(2, 4), (1, 8), (4, 2)]
+SHARD_FULL_WP = (1, 4)
+SHARD_PLAIN_ROWS = 512      # rows per call of the plain twin at full width
 # what each path of the kernels line gives of its scan calls
 SCAN_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "bound_dense_ms")
@@ -242,12 +275,12 @@ LEGACY_SAMPLE = 32
 LEGACY_OPS = 17
 
 
-def compare(args, kw, scan_cuda, scan_rows_ref) -> int:
+def compare(args, kw, kernel, plain) -> int:
     """Kernel vs plain version on the same CUDA inputs; returns the max
     absolute difference (0 when bit-equal)."""
-    got = scan_cuda.scan_rows_cuda(*args, **kw)
+    got = kernel(*args, **kw)
     torch.cuda.synchronize()
-    want = scan_rows_ref(*args, **kw)
+    want = plain(*args, **kw)
     torch.cuda.synchronize()
     err = 0
     for g, r in zip(got, want):
@@ -323,6 +356,39 @@ def legacy_bound(chrom, lanes, w: int, lmax: int):
             max(dense, t_bytes) * 1e3)
 
 
+def shard_work(cnt):
+    """(seeded candidates, steps they walk) of one shard kernel call, from
+    its counts: every live seeded candidate is at level 0 at step 0 and
+    walks steps 1.. until the step that kills it or the last step."""
+    alive = cnt[:, :, :-1].sum(dim=2, dtype=torch.int64)
+    dead = cnt[:, :, -1].long()
+    return (int(alive[:, 0].sum()),
+            int(alive[:, 1:].sum()) + int((dead[:, -1] - dead[:, 0]).sum()))
+
+
+def shard_bound(args, kw, out):
+    """The least time the card could take for one shard kernel call: its
+    int32 operations (SHARD_SEED_OPS per candidate of its columns,
+    SHARD_STEP_OPS per step a seeded candidate walks, counted from this
+    call's output) at PEAK_INT32_OPS, or its bytes (each lane's tile span
+    of the chromosome and every other input read once, the partials written
+    once) at PEAK_BYTES, whichever is longer.  Returns (ms, "operations" or
+    "bytes", seeded candidates, walked steps)."""
+    _chrom, slice_start, reverse, qq, valid_w, max_snp, tsec_minus = args
+    b, nl = slice_start.shape
+    cands = b * nl * kw["w_local"]
+    seeded, walked = shard_work(out[0])
+    ops = cands * SHARD_SEED_OPS + walked * SHARD_STEP_OPS
+    nbytes = (b * nl * (kw["w_local"] + kw["lmax"])
+              + sum(x.numel() * x.element_size()
+                    for x in (slice_start, reverse, qq, valid_w, max_snp,
+                              tsec_minus))
+              + sum(o.numel() * o.element_size() for o in out))
+    t_ops, t_bytes = ops / PEAK_INT32_OPS, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", seeded, walked)
+
+
 def time_ms(fn, reps: int) -> float:
     fn()
     torch.cuda.synchronize()
@@ -365,7 +431,8 @@ def main() -> int:
     from pindel_tpu_torch import native
     from pindel_tpu_torch.__main__ import build_parser, settings_from_args
     from pindel_tpu_torch.__main__ import main as port_main
-    from pindel_tpu_torch.ops import engine_fused, engine_jax, scan_cuda
+    from pindel_tpu_torch.ops import (engine_fused, engine_jax, scan_cuda,
+                                      sharded_search_cuda)
     from pindel_tpu_torch.ops.scan import scan_rows_ref
     from pindel_tpu_torch.testing.scan_cases import KINDS, branch_case
     from pindel_tpu_torch.pipeline import g_fallback, g_timer, run_files
@@ -375,7 +442,8 @@ def main() -> int:
                                                  digests, legacy_anchors,
                                                  load_golden,
                                                  load_scene2_digests,
-                                                 reports, two_region_lanes,
+                                                 reports, sharded_anchors,
+                                                 two_region_lanes,
                                                  write_scene)
 
     # ---- 0. the port stands on its own
@@ -395,13 +463,22 @@ def main() -> int:
     log(f"card: {card}")
     log(f"host: {host_line()}")
 
-    # ---- 2. build
-    t0 = time.monotonic()
-    info = scan_cuda.build(force=True, ptxas_info=True)
-    log(f"build: scan kernel built in {time.monotonic() - t0:.3f} s")
-    for line in info.splitlines():
-        if any(k in line for k in ("entry function", "registers", "spill")):
-            log("  ptxas: " + line.strip())
+    # ---- 2. build: one nvcc per kernel source, all started together
+    def timed_build(module):
+        t0 = time.monotonic()
+        info = module.build(force=True, ptxas_info=True)
+        return info, time.monotonic() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        builds = {name: pool.submit(timed_build, module) for name, module in
+                  (("scan", scan_cuda), ("shard", sharded_search_cuda))}
+        for name, future in builds.items():
+            info, sec = future.result()
+            log(f"build: {name} kernel built in {sec:.3f} s")
+            for line in info.splitlines():
+                if any(k in line for k in ("entry function", "registers",
+                                           "spill")):
+                    log("  ptxas: " + line.strip())
 
     dev = torch.device("cuda")
     max_err = 0
@@ -409,7 +486,7 @@ def main() -> int:
     for seed, w, lmax, rows, lsteps, aligned in RANDOM_CASES:
         case = random_case(seed, w, lmax, rows, aligned, dev)
         kw = dict(w=w, lmax=lmax, mpm=3, lsteps=lsteps)
-        err = compare(case, kw, scan_cuda, scan_rows_ref)
+        err = compare(case, kw, scan_cuda.scan_rows_cuda, scan_rows_ref)
         log(f"kernel vs plain: w={w} lmax={lmax} rows={rows} "
             f"lsteps={lsteps or lmax} aligned={aligned} max_abs_err={err}")
         max_err = max(max_err, err)
@@ -420,7 +497,7 @@ def main() -> int:
                 for a in branch_case(seed, w, lmax, kinds or KINDS * 4)]
         kw = dict(w=w, lmax=lmax, mpm=3, lsteps=lsteps)
         seeds, sparse = row_classes(case, kw)
-        err = compare(case, kw, scan_cuda, scan_rows_ref)
+        err = compare(case, kw, scan_cuda.scan_rows_cuda, scan_rows_ref)
         log(f"kernel vs plain, {label}: w={w} lmax={lmax} rows="
             f"{len(seeds)} ({int(sparse.sum())} sparse, "
             f"{int((~sparse).sum())} dense, seeds per row "
@@ -462,7 +539,7 @@ def main() -> int:
     t0 = time.monotonic()
     on_card = legacy_anchors((chrom, lanes, ms, tm), "cuda")
     torch.cuda.synchronize()
-    card_s = time.monotonic() - t0
+    card_s = legacy_card_s = time.monotonic() - t0
     peak = torch.cuda.max_memory_allocated() - base
     phases = g_timer.items()
     sample = range(0, n_full, n_full // LEGACY_SAMPLE + 1)   # both strands
@@ -491,6 +568,8 @@ def main() -> int:
         f"{bound_shapes:.3f} ms  [{card}]")
     for pname, sec in sorted(phases.items(), key=lambda kv: -kv[1]):
         log(f"  phase {pname:<52s} {sec:9.3f} s  [{card}]")
+    # phase 9 holds the window-parallel search against K8 on this batch
+    legacy_batch, legacy_on_card = (chrom, lanes, ms, tm), on_card
     del chrom, lanes, on_card
     torch.cuda.empty_cache()
 
@@ -511,6 +590,8 @@ def main() -> int:
     def reset_counts():
         scan_cuda.LAUNCHES = 0
         scan_cuda.LAUNCHES_BY_DEVICE.clear()
+        sharded_search_cuda.LAUNCHES = 0
+        sharded_search_cuda.LAUNCHES_BY_DEVICE.clear()
         engine_fused.FAR_WIN_ROWS = 0
         engine_jax.LEGACY_ROWS = 0
 
@@ -544,7 +625,8 @@ def main() -> int:
         split_ms = {"sparse": 0.0, "dense": 0.0}
         for cargs, kw in calls:
             with torch.cuda.device(cargs[0].device):
-                err = compare(cargs, kw, scan_cuda, scan_rows_ref)
+                err = compare(cargs, kw, scan_cuda.scan_rows_cuda,
+                              scan_rows_ref)
                 err_all = max(err_all, err)
                 rows, t = cargs[0].shape
                 seeds, sparse = row_classes(cargs, kw)
@@ -1049,6 +1131,232 @@ def main() -> int:
                 hosts_paths[f"{key}_timed_hosts{hosts}"] = dict(
                     launches=launches_of(med["ranks"]), wall=med["wall"])
 
+        # ---- 9. the window-parallel search (K9)
+        from pindel_tpu_torch.config import Settings
+        from pindel_tpu_torch.genome import Genome
+        from pindel_tpu_torch.ops import sharded_search as sss
+        from pindel_tpu_torch.parallel.mesh import TorchShardedBackend
+        from pindel_tpu_torch.reads import read_pindel_file
+        from pindel_tpu_torch.search import Searcher
+        from pindel_tpu_torch.testing.shard_cases import CASES, shard_case
+
+        def anchors(ups):
+            return [(u.length_str, u.abs_loc, u.direction, u.strand,
+                     u.mismatches) for u in ups]
+
+        # a. the shard kernel against its plain twin: every edge case of
+        # testing/shard_cases.py and random rows, every shard at wp = 1, 2,
+        # 4 and 8
+        k9_err = 0
+        for name, seed in ([(c, 0) for c in CASES]
+                           + [("random", s) for s in (1, 2, 3)]):
+            arrays, st = shard_case(name, seed)
+            (chrom_np, start_np, rev_np, qq_np, vw_np, _qlen, ms_np,
+             tm_np) = arrays[:8]
+            case = [torch.from_numpy(np.array(a)).to(dev) for a in
+                    (chrom_np, start_np, rev_np, qq_np, vw_np, ms_np, tm_np)]
+            errs = []
+            for wp in (1, 2, 4, 8):
+                wl = st["w_total"] // wp
+                for k in range(wp):
+                    errs.append(compare(case, dict(
+                        off=k * wl, w_total=st["w_total"], w_local=wl,
+                        lmax=st["lmax"], nl=st["nl"], mpm=st["mpm"],
+                        t_levels=int(tm_np.max()),
+                        s_levels=int(ms_np.max())),
+                        sharded_search_cuda.shard_partials_cuda,
+                        sss.shard_partials_ref))
+            k9_err = max(k9_err, max(errs))
+            log(f"shard kernel vs plain, case {name} seed {seed}: "
+                f"{qq_np.shape[0]} rows x {st['nl']} lanes, w_total "
+                f"{st['w_total']}, {len(errs)} shard calls at wp 1/2/4/8, "
+                f"max_abs_err={max(errs)}")
+        if k9_err:
+            fail(f"shard kernel disagrees with its plain twin (max {k9_err})")
+
+        # b. TorchShardedBackend under a Searcher on a small scene against
+        # the NumPy oracle: three grids over cuda:0 x 8 and every card
+        d9 = os.path.join(work, "k9")
+        os.makedirs(d9)
+        fa9, reads9, _n9 = write_scene(d9, **SMALL_SCENES["seed0"][0])
+        settings9 = Settings()
+        chrom9 = Genome.from_fasta(fa9).chromosomes[0]
+
+        def search9(backend):
+            reads = list(read_pindel_file(reads9))
+            sr = Searcher(settings9, backend=backend)
+            sr.map_close_ends(chrom9, reads)
+            kept = sr.finalize_close_ends(reads)
+            sr.search_far_ends(chrom9, kept)
+            return [(r.name, anchors(r.up_close), anchors(r.up_far))
+                    for r in kept]
+
+        want9 = search9(None)
+        if not any(far for _n, _c, far in want9):
+            fail("K9 scene: the NumPy oracle found no far end")
+        k9_launches = 0
+        n_cards = torch.cuda.device_count()
+        grids9 = [(f"cuda:0 x 8 at ({dp}, {wp})", ["cuda:0"] * 8, dp)
+                  for dp, wp in SHARD_GRIDS]
+        grids9.append((f"every card ({n_cards})",
+                       [f"cuda:{i}" for i in range(n_cards)], None))
+        for label, devs, dp in grids9:
+            backend = TorchShardedBackend(settings9,
+                                          settings9.max_mismatch(),
+                                          chrom9.seq, devs, dp)
+            reset_counts()
+            t0 = time.monotonic()
+            got = search9(backend)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            launches = sharded_search_cuda.LAUNCHES
+            by_card = dict(sorted(
+                sharded_search_cuda.LAUNCHES_BY_DEVICE.items()))
+            if got != want9:
+                fail(f"K9 backend over {label}: anchors differ from the "
+                     "NumPy oracle")
+            if set(by_card) != {torch.device(d).index for d in devs}:
+                fail(f"K9 backend over {label}: launches by card {by_card}")
+            k9_launches += launches
+            log(f"K9 backend over {label}: {len(got)} reads, anchors equal "
+                f"to the NumPy oracle, {launches} shard launches by card "
+                f"{by_card}, {wall:.3f} s  [{card}]")
+
+        # c. full width: phase 3b's batch (8,192 reads x 4 lanes, w =
+        # 32768) at (1, 1) and (1, 4) over cuda:0, against K8's anchors
+        # from phase 3b and, on its sampled reads, the plain twin
+        chrom_l, lanes_l, ms_l, tm_l = legacy_batch
+        sample = range(0, len(lanes_l), len(lanes_l) // LEGACY_SAMPLE + 1)
+        k9_full = {}
+        for wp in SHARD_FULL_WP:
+            label = f"K9 full batch at (1, {wp}) over cuda:0"
+            backend = TorchShardedBackend(settings9,
+                                          settings9.max_mismatch(),
+                                          chrom_l.seq, ["cuda:0"] * wp, 1)
+            # a first run records the kernel's calls (inputs and outputs)
+            calls = []
+            real = sss.shard_partials
+
+            def recording(*a, **kw):
+                out = real(*a, **kw)
+                calls.append(([x.clone() for x in a], dict(kw),
+                              [o.clone() for o in out]))
+                return out
+
+            sss.shard_partials = recording
+            try:
+                backend.run(lanes_l, 10, ms_l, tm_l)
+            finally:
+                sss.shard_partials = real
+            # the timed run: counts from 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            reset_counts()
+            g_timer.reset()
+            t0 = time.monotonic()
+            res = backend.run(lanes_l, 10, ms_l, tm_l)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            launches = sharded_search_cuda.LAUNCHES
+            peak = torch.cuda.max_memory_allocated() - base
+            phases = g_timer.items()
+            got = [(anchors(ups), full) for ups, full in res]
+            if got != legacy_on_card:
+                bad = sum(a != b for a, b in zip(got, legacy_on_card))
+                fail(f"{label}: {bad} reads differ from K8's")
+            on_cpu = sharded_anchors(
+                (chrom_l, [lanes_l[i] for i in sample],
+                 [ms_l[i] for i in sample], [tm_l[i] for i in sample]),
+                ["cpu"] * wp, 1)
+            if [got[i] for i in sample] != on_cpu:
+                fail(f"{label}: the card and the plain twin disagree on the "
+                     f"{len(sample)} sampled reads")
+            k9_launches += launches
+            # every recorded call: kernel time, the plain twin over all its
+            # rows (in chunks, each held against the kernel's rows), bound
+            shards = []
+            for args, kw, out in calls:
+                ms_k = time_ms(lambda: sharded_search_cuda.
+                               shard_partials_cuda(*args, **kw), 5)
+                rows = args[1].shape[0]
+                plain_ms, err = 0.0, 0
+                for lo in range(0, rows, SHARD_PLAIN_ROWS):
+                    sub = [args[0]] + [x[lo:lo + SHARD_PLAIN_ROWS]
+                                       for x in args[1:]]
+                    start = torch.cuda.Event(enable_timing=True)
+                    stop = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    want = sss.shard_partials_ref(*sub, **kw)
+                    stop.record()
+                    torch.cuda.synchronize()
+                    plain_ms += start.elapsed_time(stop)
+                    for w, o in zip(want, out):
+                        o = o[lo:lo + SHARD_PLAIN_ROWS]
+                        err = max(err, int((w.long() - o.long()).abs().max()))
+                    del want
+                bound, bound_by, seeded, walked = shard_bound(args, kw, out)
+                shards.append(dict(ms=ms_k, plain_ms=plain_ms, err=err,
+                                   bound_ms=bound, bound_by=bound_by))
+                k9_err = max(k9_err, err)
+                log(f"{label} shard off={kw['off']} w_local={kw['w_local']}"
+                    f" rows={rows}: kernel {ms_k:.4f} ms, plain twin "
+                    f"{plain_ms:.3f} ms, bound {bound:.4f} ms ({bound_by}; "
+                    f"{seeded} seeded candidates walking {walked} steps, "
+                    f"{SHARD_STEP_OPS} int32 operations per step, "
+                    f"{SHARD_SEED_OPS} per candidate), {bound / ms_k:.1%} of "
+                    f"it, max_abs_err={err}  [{card}]")
+            del calls
+            if k9_err:
+                fail(f"{label}: shard kernel disagrees with its plain twin "
+                     f"(max {k9_err})")
+            hits = sum(bool(a) for a, _ in got)
+            log(f"{label}: {len(got)} reads x 4 lanes, {hits} "
+                f"with anchors, equal to K8 (phase 3b) and, on "
+                f"{len(sample)} sampled reads, to the plain twin; wall "
+                f"{wall:.3f} s (K8 {legacy_card_s:.3f} s), kernel "
+                f"{sum(x['ms'] for x in shards):.4f} ms over {launches} "
+                f"launches, peak device memory above the baseline "
+                f"{peak / 2 ** 20:.1f} MiB  [{card}]")
+            for pname, sec in sorted(phases.items(), key=lambda kv: -kv[1]):
+                log(f"  phase {pname:<52s} {sec:9.3f} s  [{card}]")
+            k9_full[wp] = dict(shards=shards, launches=launches, wall=wall)
+            torch.cuda.empty_cache()
+
+        # d. --backend numpy and jax on the 16 small scenes
+        jax_rows = 0
+        for name in ("numpy", "jax"):
+            runs9 = [(scene, None) for scene in SMALL_SCENES] + [
+                (scene, spec) for scene, spec in BAM_SCENES.items()]
+            for scene, spec in runs9:
+                d = os.path.join(work, f"{name}_{scene}")
+                os.makedirs(d)
+                prefix = os.path.join(d, "port")
+                if spec is None:
+                    scene_kw, flags, _fields = SMALL_SCENES[scene]
+                    fa, reads_txt, _n = write_scene(d, **scene_kw)
+                    argv = ["-f", fa, "-p", reads_txt, "-o", prefix, "-s",
+                            *flags]
+                else:
+                    argv = bam_argv(spec, spec.build(d), prefix)
+                reset_counts()
+                run_cli(port_main, argv + ["--backend", name])
+                same_reports(f"--backend {name} scene {scene}",
+                             golden[scene], reports(prefix))
+                if scan_cuda.LAUNCHES or sharded_search_cuda.LAUNCHES:
+                    fail(f"--backend {name} scene {scene}: a kernel of "
+                         "another backend launched")
+                if name == "numpy" and engine_jax.LEGACY_ROWS:
+                    fail(f"--backend numpy scene {scene}: the device "
+                         "searched")
+                jax_rows += engine_jax.LEGACY_ROWS
+            log(f"--backend {name}: {len(runs9)} small scenes (8 text, 8 "
+                "BAM) byte-identical to the golden reports"
+                + (f", {jax_rows} reads searched by K8 on the card"
+                   if name == "jax" else ", no device search"))
+        if jax_rows == 0:
+            fail("--backend jax searched no read on the card")
+
     loaded = reference_modules()
     if loaded:
         fail(f"a run loaded {loaded}")
@@ -1067,6 +1375,21 @@ def main() -> int:
                     bound_by=scene1["bound_by"],
                     bound_dense_ms=scene1["bound_dense_ms"], library_ms=None,
                     paths=paths)]
+    # K9 at its largest shape (the full batch at wp = 1); launches over the
+    # backend runs of phase 9b and the timed full-width runs of 9c
+    top = k9_full[1]["shards"][0]
+    kernels.append(dict(
+        name="sharded_search", route="cuda",
+        source="pindel_tpu_torch/csrc/sharded_search.cu",
+        replaces="pindel_tpu/parallel/mesh.py:46", launches=k9_launches,
+        max_abs_err=k9_err, ms=top["ms"], plain_ms=top["plain_ms"],
+        bound_ms=top["bound_ms"], bound_by=top["bound_by"], library_ms=None,
+        paths={f"full_wp{wp}": dict(
+            launches=v["launches"], wall=v["wall"],
+            ms=sum(x["ms"] for x in v["shards"]),
+            plain_ms=sum(x["plain_ms"] for x in v["shards"]),
+            bound_ms=sum(x["bound_ms"] for x in v["shards"]))
+            for wp, v in k9_full.items()}))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

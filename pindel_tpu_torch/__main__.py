@@ -3,12 +3,15 @@
 
 The flags are those of ``python -m pindel_tpu`` (reference CLI,
 fn_parameters.cpp:17-351), plus ``--device`` (default ``cuda``);
-``--backend`` takes ``fused`` (one device) or ``mesh`` (data-parallel over
-every visible card), the reference's names for the two.  ``--hosts N``
+``--backend`` takes the reference's four names: ``numpy`` (the NumPy
+oracle on the host), ``jax`` (the per-lane search, K8, on ``--device``;
+nothing imports jax), ``fused`` (the default: one device) or ``mesh``
+(data-parallel over every visible card).  ``--hosts N``
 shards the windows over N processes, each on its own card
 (parallel/multihost.py), with ``--dist files`` or ``store`` (``jax``, the
 reference's name, means ``store``).  ``-x > 4`` stops with an error that
-names its ROADMAP item.
+names its ROADMAP item, except with ``--backend numpy``, which runs it
+as the reference's does.
 """
 from __future__ import annotations
 
@@ -135,9 +138,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help="torch device of the search: cuda (default) or "
                          "cpu; cuda without a card is an error")
     ap.add_argument("--backend", default="fused", choices=BACKENDS,
-                    help="fused: the search on one device; mesh: read "
-                         "batches split over every visible card (one CPU "
-                         "device with --device cpu)")
+                    help="numpy: the NumPy oracle on the host; jax: the "
+                         "per-lane search on --device; fused: the search "
+                         "on one device; mesh: read batches split over "
+                         "every visible card (one CPU device with --device "
+                         "cpu)")
     return ap
 
 
@@ -193,7 +198,7 @@ def main(argv=None) -> int:
 
     def check():
         try:
-            check_supported(s)
+            check_supported(s, args.backend)
         except NotImplementedError as e:
             ap.error(str(e))
 

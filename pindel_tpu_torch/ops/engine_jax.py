@@ -184,6 +184,41 @@ def unpack_kernel_output(packed: np.ndarray, lmax: int):
     return emit, min_mm, rep_lane, rep_w, full_last
 
 
+def pack_lanes(batch_lanes: List[List[Lane]], rows: int, nl: int, w: int,
+               lmax: int):
+    """The per-lane search's host packing of ``batch_lanes`` into ``rows``
+    rows (the rest padding): every lane becomes a forward tile (a backward
+    lane's slice ends at its window's end and its query is reversed).
+    Returns slice_start, reverse, qq, valid_w, and the lanes' forward,
+    direction-minus, strand-minus flags and chromosome names."""
+    slice_start = np.zeros((rows, nl), dtype=np.int32)
+    rev = np.zeros((rows, nl), dtype=bool)
+    qq = np.full((rows, nl, lmax), dna.N, dtype=np.int8)
+    valid_w = np.zeros((rows, nl), dtype=np.int32)
+    lane_dir_minus = np.zeros((rows, nl), dtype=bool)
+    lane_strand_minus = np.zeros((rows, nl), dtype=bool)
+    lane_fwd = np.ones((rows, nl), dtype=bool)
+    lane_chr = [[""] * nl for _ in range(rows)]
+    for i, lanes in enumerate(batch_lanes):
+        for j, lane in enumerate(lanes):
+            lw = max(lane.end - lane.start, 0)
+            n = lane.query.shape[0]
+            if lane.forward:
+                slice_start[i, j] = lane.start
+                qq[i, j, :n] = lane.query
+            else:
+                slice_start[i, j] = lane.end - w - lmax
+                rev[i, j] = True
+                qq[i, j, :n] = lane.query[::-1]
+                lane_fwd[i, j] = False
+            valid_w[i, j] = min(lw, w)
+            lane_dir_minus[i, j] = lane.direction == "-"
+            lane_strand_minus[i, j] = lane.strand == "-"
+            lane_chr[i][j] = lane.chr_name
+    return (slice_start, rev, qq, valid_w, lane_fwd, lane_dir_minus,
+            lane_strand_minus, lane_chr)
+
+
 class TorchLaneBackend:
     """Backend with the Searcher-facing ``run`` interface on a torch device
     (counterpart of ``JaxBackend``).
@@ -244,31 +279,9 @@ class TorchLaneBackend:
                 "the reference either (ROADMAP Queue 3)")
 
         b = len(batch_lanes)
-        slice_start = np.zeros((b, nl), dtype=np.int32)
-        rev = np.zeros((b, nl), dtype=bool)
-        qq = np.full((b, nl, lmax), dna.N, dtype=np.int8)
-        valid_w = np.zeros((b, nl), dtype=np.int32)
-        lane_dir_minus = np.zeros((b, nl), dtype=bool)
-        lane_strand_minus = np.zeros((b, nl), dtype=bool)
-        lane_fwd = np.ones((b, nl), dtype=bool)
-        lane_chr = [[""] * nl for _ in range(b)]
-        for i, lanes in enumerate(batch_lanes):
-            for j, lane in enumerate(lanes):
-                lw = max(lane.end - lane.start, 0)
-                n = lane.query.shape[0]
-                if lane.forward:
-                    slice_start[i, j] = lane.start
-                    qq[i, j, :n] = lane.query
-                else:
-                    slice_start[i, j] = lane.end - w - lmax
-                    rev[i, j] = True
-                    qq[i, j, :n] = lane.query[::-1]
-                    lane_fwd[i, j] = False
-                valid_w[i, j] = min(lw, w)
-                lane_dir_minus[i, j] = lane.direction == "-"
-                lane_strand_minus[i, j] = lane.strand == "-"
-                lane_chr[i][j] = lane.chr_name
-
+        (slice_start, rev, qq, valid_w, lane_fwd, lane_dir_minus,
+         lane_strand_minus, lane_chr) = pack_lanes(batch_lanes, b, nl, w,
+                                                   lmax)
         qlen_a = np.array(qlens, dtype=np.int32)
         ms_a = np.array(max_snps, dtype=np.int32)
         tm_a = np.array(tsec_minus, dtype=np.int32)

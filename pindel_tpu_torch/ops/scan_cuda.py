@@ -43,23 +43,30 @@ def nvcc() -> str:
     return os.path.join(home, "bin", "nvcc")
 
 
-def build(force: bool = False, ptxas_info: bool = False) -> str:
-    """Compile the kernel unless the library is newer than its source.
-    Returns nvcc's diagnostics (with ``ptxas_info``, the registers, shared
-    memory and spills of every instantiation); raises if nvcc fails."""
-    if (not force and os.path.exists(LIBRARY)
-            and os.path.getmtime(LIBRARY) >= os.path.getmtime(SOURCE)):
+def compile_library(source: str, library: str, force: bool = False,
+                    ptxas_info: bool = False) -> str:
+    """Compile ``source`` with nvcc for sm_90a into the shared library
+    ``library`` unless the library is newer than the source.  Returns
+    nvcc's diagnostics (with ``ptxas_info``, the registers, shared memory
+    and spills of every kernel); raises if nvcc fails."""
+    if (not force and os.path.exists(library)
+            and os.path.getmtime(library) >= os.path.getmtime(source)):
         return ""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIBRARY}.{os.getpid()}.tmp"
+    os.makedirs(os.path.dirname(library), exist_ok=True)
+    tmp = f"{library}.{os.getpid()}.tmp"
     cmd = [nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if ptxas_info else []),
-           "-o", tmp, SOURCE]
+           "-o", tmp, source]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
                            f"{' '.join(cmd)}\n{res.stderr}")
-    os.replace(tmp, LIBRARY)
+    os.replace(tmp, library)
     return res.stderr
+
+
+def build(force: bool = False, ptxas_info: bool = False) -> str:
+    """Compile the scan kernel (``compile_library``)."""
+    return compile_library(SOURCE, LIBRARY, force, ptxas_info)
 
 
 def load(path: str) -> ctypes.CDLL:
@@ -80,7 +87,9 @@ def _lib() -> ctypes.CDLL:
         return _LIB
 
 
-def _check(name, x, dtype, shape, device) -> None:
+def check_tensor(name, x, dtype, shape, device) -> None:
+    """Raise unless ``x`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device``."""
     if x.device != device:
         raise ValueError(f"{name} is on {x.device}, expected {device}")
     if x.dtype != dtype:
@@ -112,11 +121,11 @@ def scan_rows_cuda(tiles, qq, valid_w, qlen, thr, off=None,
         if we != w:
             raise ValueError("off omitted: tiles must be exactly w + lmax")
         off = torch.zeros((r,), dtype=torch.int32, device=device)
-    _check("tiles", tiles, torch.int8, (r, t), device)
-    _check("qq", qq, torch.int8, (r, lmax), device)
+    check_tensor("tiles", tiles, torch.int8, (r, t), device)
+    check_tensor("qq", qq, torch.int8, (r, lmax), device)
     for name, x in (("valid_w", valid_w), ("qlen", qlen), ("thr", thr),
                     ("off", off)):
-        _check(name, x, torch.int32, (r,), device)
+        check_tensor(name, x, torch.int32, (r,), device)
     shift = key_shift(w)
     dead = dead_level(lmax)
     if ((dead + lmax) << shift) + (1 << shift) >= 2 ** 31:

@@ -38,11 +38,22 @@ def make_device_list(n: Optional[int] = None) -> List[torch.device]:
     return [torch.device("cuda", i) for i in range(n)]
 
 
-def _normalize(device) -> torch.device:
+def normalize(device) -> torch.device:
+    """``device`` as a torch device, bare ``cuda`` as the current card."""
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def check_split(n: int) -> None:
+    """Raise ValueError unless every batch bucket of the fused backend
+    splits evenly over ``n`` devices."""
+    if any(b % n for b in ef.TorchFusedBackend.B_BUCKETS):
+        raise ValueError(
+            f"{n} devices: the batch buckets "
+            f"{ef.TorchFusedBackend.B_BUCKETS} do not all divide by {n}; "
+            "give the mesh backend a power of two of devices (at most 256)")
 
 
 class _Merged:
@@ -65,15 +76,14 @@ class TorchMeshBackend(ef.TorchFusedBackend):
 
     def __init__(self, settings, maxmm, chrom_codes, devices: Sequence,
                  chrom_name: str = None):
-        devices = [_normalize(d) for d in devices]
+        devices = [normalize(d) for d in devices]
         if not devices:
             raise ValueError("the mesh backend needs at least one device")
         super().__init__(settings, maxmm, chrom_codes,
                          chrom_name=chrom_name, device=devices[0])
         self.devices = devices
         self.dp = len(devices)
-        assert all(b % self.dp == 0 for b in self.B_BUCKETS), (
-            "batch buckets must divide the device count")
+        check_split(self.dp)
         # chromosome, its tile layout and maxmm: one replica per distinct
         # device
         self.states = {self.device: self.state}

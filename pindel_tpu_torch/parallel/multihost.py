@@ -46,6 +46,7 @@ from typing import Dict, List, Optional
 import torch
 
 from pindel_tpu_torch.ops import scan_cuda
+from pindel_tpu_torch.parallel.mesh_fused import check_split
 from pindel_tpu_torch.profiling import g_timer
 
 # one record per rank of the last run_files_multihost, rank 0 first
@@ -168,14 +169,18 @@ class WindowSpool(Spool):
 def rank_devices(device, backend: str, rank: int,
                  num_hosts: int) -> List[str]:
     """The devices rank ``rank`` of ``num_hosts`` searches on: the first is
-    its ``fused`` device, a ``mesh`` backend takes them all.
+    its one-device backend's device, a ``mesh`` backend takes them all.
 
-    ``cpu`` and an indexed card (``cuda:K``) serve every rank.  Bare
-    ``cuda`` spreads the ranks over the visible cards: with ``fused`` rank r
-    takes card ``r % count``; with ``mesh`` it takes the cards c with
-    ``c % num_hosts == r``, or its one card ``r % count`` when there are
-    fewer cards than ranks.  No visible card raises."""
+    ``cpu`` and an indexed card (``cuda:K``) serve every rank, and the
+    ``numpy`` backend searches on the host (``cpu``).  Bare ``cuda``
+    spreads the ranks over the visible cards: rank r takes card ``r %
+    count``, and with ``mesh`` a block of its own of the largest power of
+    two of cards at most ``count // num_hosts`` (cards ``[r * n, (r + 1) *
+    n)``), so that its batch buckets split evenly; with fewer cards than
+    ranks it takes its one card ``r % count``.  No visible card raises."""
     dev = torch.device(device)
+    if backend == "numpy":
+        return ["cpu"]
     if dev.type != "cuda" or dev.index is not None:
         return [str(dev)]
     count = torch.cuda.device_count()
@@ -183,7 +188,9 @@ def rank_devices(device, backend: str, rank: int,
         raise RuntimeError(f"device {device!r} requested but no CUDA card "
                            "is visible")
     if backend == "mesh" and count >= num_hosts:
-        return [f"cuda:{c}" for c in range(count) if c % num_hosts == rank]
+        n = 1 << ((count // num_hosts).bit_length() - 1)
+        check_split(n)
+        return [f"cuda:{c}" for c in range(rank * n, (rank + 1) * n)]
     return [f"cuda:{rank % count}"]
 
 
@@ -329,7 +336,7 @@ def run_files_multihost(reference_fa: str, pindel_file: Optional[str],
                          devices=devices[0] if mesh else None)
     dist = DISTS[dist]
     s = copy.deepcopy(settings)
-    check_supported(s)
+    check_supported(s, backend)
     if s.report_only_close_mapped_reads:
         raise ValueError("-S is single-process (it is itself the two-phase "
                          "checkpoint)")
@@ -341,11 +348,6 @@ def run_files_multihost(reference_fa: str, pindel_file: Optional[str],
 
     t0 = time.time()
     before = collections.Counter(scan_cuda.LAUNCHES_BY_DEVICE)
-    spool_dir = tempfile.mkdtemp(prefix="pindel_tpu_torch_spool_")
-    store = None
-    if dist == "store":
-        from pindel_tpu_torch.parallel.distspool import StoreSpool, serve
-        store = serve()
     cpu_shards = _cpu_shards(num_hosts)
     affinity = os.sched_getaffinity(0)
     env = dict(os.environ)
@@ -353,7 +355,13 @@ def run_files_multihost(reference_fa: str, pindel_file: Optional[str],
         [_PKG_PARENT] + [p for p in env.get("PYTHONPATH", "").split(
             os.pathsep) if p])
     procs: Dict[int, subprocess.Popen] = {}
+    spool_dir = None
+    store = None
     try:
+        spool_dir = tempfile.mkdtemp(prefix="pindel_tpu_torch_spool_")
+        if dist == "store":
+            from pindel_tpu_torch.parallel.distspool import StoreSpool, serve
+            store = serve()
         if cpu_shards:
             os.sched_setaffinity(0, cpu_shards[0])
         for rank in range(1, num_hosts):
@@ -405,7 +413,8 @@ def run_files_multihost(reference_fa: str, pindel_file: Optional[str],
                 proc.wait()
         if cpu_shards:
             os.sched_setaffinity(0, affinity)
-        shutil.rmtree(spool_dir, ignore_errors=True)
+        if spool_dir is not None:
+            shutil.rmtree(spool_dir, ignore_errors=True)
     return s
 
 

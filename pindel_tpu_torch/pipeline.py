@@ -800,7 +800,7 @@ class Pipeline:
 
 
 
-BACKENDS = ("fused", "mesh")
+BACKENDS = ("numpy", "jax", "fused", "mesh")
 
 
 def resolve_device(device) -> torch.device:
@@ -817,19 +817,35 @@ def resolve_device(device) -> torch.device:
 
 def make_backend_factory(settings: Settings, device, backend: str = "fused",
                          devices: Optional[Sequence] = None):
-    """chrom -> device backend for a ``--backend`` name: ``fused`` is
-    TorchFusedBackend on ``device``; ``mesh`` is TorchMeshBackend over
-    ``devices``, by default every visible card (or ``device`` itself when
-    it is the CPU)."""
+    """chrom -> device backend for a ``--backend`` name: ``numpy`` is no
+    factory (the Searcher runs the NumPy oracle, ops/search_np.py, on the
+    host, whatever ``device`` says); ``jax`` is the per-lane search
+    TorchLaneBackend (K8) for every search on ``device`` (the reference's
+    name; nothing imports jax); ``fused`` is TorchFusedBackend on
+    ``device``; ``mesh`` is TorchMeshBackend over ``devices``, by default
+    every visible card (or ``device`` itself when it is the CPU)."""
+    if backend == "numpy":
+        return None
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; the port has "
+                         f"{', '.join(BACKENDS)}")
     dev = resolve_device(device)
-    if backend == "fused":
+    if backend == "jax":
+        from pindel_tpu_torch.ops.engine_fused import device_state_from_numpy
+        from pindel_tpu_torch.ops.engine_jax import TorchLaneBackend
+
+        def factory(chrom):
+            state = device_state_from_numpy(chrom.seq,
+                                            settings.max_mismatch(), dev)
+            return TorchLaneBackend(settings, state, chrom_name=chrom.name)
+    elif backend == "fused":
         from pindel_tpu_torch.ops.engine_fused import TorchFusedBackend
 
         def factory(chrom):
             return TorchFusedBackend(settings, settings.max_mismatch(),
                                      chrom.seq, chrom_name=chrom.name,
                                      device=dev)
-    elif backend == "mesh":
+    else:
         from pindel_tpu_torch.parallel.mesh_fused import (TorchMeshBackend,
                                                           make_device_list)
         if devices is None:
@@ -839,24 +855,22 @@ def make_backend_factory(settings: Settings, device, backend: str = "fused",
         def factory(chrom):
             return TorchMeshBackend(settings, settings.max_mismatch(),
                                     chrom.seq, devs, chrom_name=chrom.name)
-    else:
-        raise ValueError(f"unknown backend {backend!r}; the port has "
-                         f"{', '.join(BACKENDS)}")
     return factory
 
 
-def check_supported(settings: Settings) -> None:
+def check_supported(settings: Settings, backend: str = "fused") -> None:
     """Refuse settings whose search path does not run on a device backend.
 
     At -x 5 and above the last geometric far-end round spans 131,072 bp:
     its window bucket outgrows the spacer the tile gather relies on, and
     the reference's device backends fail an assert there
-    (engine_jax.py:273-275); only its NumPy backend runs it."""
-    if settings.max_range_index > 4:
+    (engine_jax.py:273-275); only its NumPy backend runs it, and so does
+    the port's ``numpy``."""
+    if settings.max_range_index > 4 and backend != "numpy":
         raise NotImplementedError(
             "-x > 4: the far-end window outgrows the chromosome spacer, "
             "which the reference's device backends do not run either "
-            "(ROADMAP Queue 3)")
+            "(ROADMAP Queue 3); --backend numpy runs it")
 
 
 def run_files(reference_fa: str, pindel_file: Optional[str],
@@ -867,7 +881,7 @@ def run_files(reference_fa: str, pindel_file: Optional[str],
     """Convenience entry: -f/-p|-i|-P/-o equivalent on torch devices;
     ``spool`` shards the windows over processes (parallel/multihost.py)."""
     s = settings or Settings()
-    check_supported(s)
+    check_supported(s, backend)
     s.reference_filename = reference_fa
     s.pindel_filename = pindel_file or ""
     s.bam_config_filename = bam_config or ""
@@ -931,7 +945,7 @@ def run_dd_files(reference_fa: str, bam_config: str, output_prefix: str,
     from pindel_tpu_torch.bam import read_bam_config
     from pindel_tpu_torch.dd import search_dd_main
     s = settings or Settings()
-    check_supported(s)
+    check_supported(s, backend)
     s.reference_filename = reference_fa
     s.bam_config_filename = bam_config
     s.output_prefix = output_prefix
@@ -953,7 +967,7 @@ def run_assembly_files(reference_fa: str, bam_config: str, sv_path: str,
     from pindel_tpu_torch.assembly import Assembler
     from pindel_tpu_torch.bam import read_bam_config
     s = settings or Settings()
-    check_supported(s)
+    check_supported(s, backend)
     s.reference_filename = reference_fa
     s.output_prefix = output_prefix
     factory = make_backend_factory(s, device, backend, devices)

@@ -411,6 +411,21 @@ def legacy_anchors(batch, device) -> List[Tuple[list, int]]:
             for ups, full_mm in backend.run(lanes, 10, ms, tm)]
 
 
+def sharded_anchors(batch, devices, dp: int = None):
+    """``TorchShardedBackend.run`` (the window-parallel search, K9) over a
+    ``two_region_lanes`` batch on the grid over ``devices``, in
+    ``legacy_anchors``'s form."""
+    from pindel_tpu_torch.config import Settings
+    from pindel_tpu_torch.parallel.mesh import TorchShardedBackend
+    chrom, lanes, ms, tm = batch
+    settings = Settings()
+    backend = TorchShardedBackend(settings, settings.max_mismatch(),
+                                  chrom.seq, devices, dp)
+    return [([(u.length_str, u.abs_loc, u.direction, u.strand, u.mismatches)
+              for u in ups], full_mm)
+            for ups, full_mm in backend.run(lanes, 10, ms, tm)]
+
+
 def digests(files: Dict[str, bytes]) -> Dict[str, str]:
     return {suffix: hashlib.sha256(raw).hexdigest()
             for suffix, raw in sorted(files.items())}

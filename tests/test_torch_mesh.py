@@ -171,10 +171,11 @@ def test_mesh_shards_each_reach_the_scan(monkeypatch, call):
 
 
 def test_mesh_refuses_indivisible_buckets():
-    """Three devices do not divide the 256-row bucket: the port raises as
-    the reference's assert does."""
+    """Three devices do not divide the 256-row bucket: the port raises
+    ValueError (an assert would vanish under python -O) where the
+    reference's assert fails."""
     settings, chrom, _payload, _static = far_win_case()
-    with pytest.raises(AssertionError, match="divide"):
+    with pytest.raises(ValueError, match="divide"):
         TorchMeshBackend(to_port(settings), settings.max_mismatch(),
                          chrom.seq, ["cpu"] * 3)
     with pytest.raises(AssertionError, match="divide"):
@@ -249,7 +250,7 @@ def test_cli_backend_mesh(tmp_path):
     _same(reports(prefix), load_golden()["seed0"], "the golden reports")
     with pytest.raises(SystemExit):
         port_main(["-f", fa, "-p", reads_txt, "-o", prefix,
-                   "--device", "cpu", "--backend", "numpy"])
+                   "--device", "cpu", "--backend", "tpu"])
     assert os.path.exists(prefix + "_D")
 
 

@@ -20,6 +20,7 @@ from pindel_tpu_torch.__main__ import build_parser, main as port_main
 from pindel_tpu_torch.bddata import BDCoord
 from pindel_tpu_torch.config import Settings
 from pindel_tpu_torch.parallel import distspool, multihost, payload
+from pindel_tpu_torch.parallel.mesh_fused import TorchMeshBackend
 from pindel_tpu_torch.search import Searcher
 from pindel_tpu_torch.testing.scenes import (BAM_SCENES, bam_argv,
                                              load_golden, reports)
@@ -187,31 +188,75 @@ def test_spool_assignment(make):
     assert [sp.worker for sp in spools] == [False, True, True]
 
 
-@pytest.mark.parametrize("count", [1, 2, 4])
+@pytest.mark.parametrize("count", [1, 2, 3, 4, 5, 6, 8])
 def test_rank_devices(monkeypatch, count):
+    """Every rank's mesh devices satisfy TorchMeshBackend's precondition
+    (its batch buckets split evenly: a power of two of cards), and, with
+    at least as many cards as ranks, no card serves two ranks."""
     monkeypatch.setattr(torch.cuda, "device_count", lambda: count)
 
     def spread(device, backend, n):
         return [multihost.rank_devices(device, backend, r, n)
                 for r in range(n)]
 
-    for backend in ("fused", "mesh"):
+    for backend in ("fused", "jax", "mesh"):
         assert spread("cpu", backend, 3) == [["cpu"]] * 3
         assert spread("cuda:1", backend, 3) == [["cuda:1"]] * 3
-    assert spread("cuda", "fused", 3) == [[f"cuda:{r % count}"]
-                                          for r in range(3)]
-    mesh2 = spread("cuda", "mesh", 2)
-    if count == 1:
-        assert mesh2 == [["cuda:0"], ["cuda:0"]]
-    else:
-        assert mesh2 == [[f"cuda:{c}" for c in range(count) if c % 2 == r]
-                         for r in range(2)]
-    assert spread("cuda", "mesh", 3) == (
-        [["cuda:0", "cuda:3"], ["cuda:1"], ["cuda:2"]] if count == 4
-        else [[f"cuda:{r % count}"] for r in range(3)])
+    assert spread("cuda", "numpy", 2) == [["cpu"]] * 2
+    for backend in ("fused", "jax"):
+        assert spread("cuda", backend, 3) == [[f"cuda:{r % count}"]
+                                              for r in range(3)]
+    buckets = TorchMeshBackend.B_BUCKETS
+    for n in (1, 2, 3):
+        ranks = spread("cuda", "mesh", n)
+        for devs in ranks:
+            assert all(b % len(devs) == 0 for b in buckets), devs
+            assert len(set(devs)) == len(devs)
+        cards = [d for devs in ranks for d in devs]
+        if count >= n:
+            assert len(set(cards)) == len(cards), ranks
+            per = len(ranks[0])
+            assert per & (per - 1) == 0 and per <= count // n < 2 * per
+            assert ranks == [[f"cuda:{c}" for c in range(r * per,
+                                                          (r + 1) * per)]
+                             for r in range(n)]
+        else:
+            assert ranks == [[f"cuda:{r % count}"] for r in range(n)]
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
     with pytest.raises(RuntimeError, match="no CUDA card"):
         multihost.rank_devices("cuda", "fused", 0, 2)
+
+
+def test_rank_devices_refuses_indivisible(monkeypatch):
+    """More cards per rank than the batch buckets divide by raises
+    ValueError naming the count, as TorchMeshBackend does."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1024)
+    with pytest.raises(ValueError, match="512 devices"):
+        multihost.rank_devices("cuda", "mesh", 0, 2)
+    with pytest.raises(ValueError, match="6 devices"):
+        TorchMeshBackend(Settings(), Settings().max_mismatch(),
+                         np.zeros(1000, np.int8), ["cpu"] * 6)
+
+
+def test_spool_removed_when_store_fails(text_scene, monkeypatch):
+    """A store that fails to start leaves no spool directory behind."""
+    d, base, _want = text_scene
+    made = []
+    real = multihost.tempfile.mkdtemp
+
+    def mkdtemp(*a, **kw):
+        made.append(real(*a, **kw))
+        return made[-1]
+
+    def serve():
+        raise OSError("store refused to start")
+
+    monkeypatch.setattr(multihost.tempfile, "mkdtemp", mkdtemp)
+    monkeypatch.setattr(distspool, "serve", serve)
+    with pytest.raises(OSError, match="store refused"):
+        port_main([*base, "--device", "cpu", "--hosts", "2", "--dist",
+                   "store", "-o", _out(d, "nostore")])
+    assert made and not any(os.path.exists(p) for p in made)
 
 
 def test_failed_worker_fails_the_run(text_scene, monkeypatch):

@@ -27,7 +27,9 @@ COPIED = ["profiling.py", "config.py", "dna.py", "genome.py", "reads.py",
           "textindex.py", "cxxsort.py", "regions.py", "depth.py",
           "ops/search_np.py", "search.py", "events/canonical.py",
           "events/detect.py", "report/reporter.py", "bam.py", "bddata.py",
-          "genotyping.py", "parallel/payload.py", "native/bamio.cpp",
+          "genotyping.py", "parallel/payload.py", "pindel2vcf.py",
+          "pindel2vcf4tcga.py", "sam2pindel.py", "bam2pindel.py",
+          "somatic.py", "native/bamio.cpp",
           "native/detect.cpp", "native/packer.cpp", "native/rp.cpp",
           "native/seqmatch.cpp", "native/textscan.cpp"]
 # copied modules that differ: module -> (its top-level names that differ,
