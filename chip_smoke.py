@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py [--profile-dir DIR]
+    python3 chip_smoke.py [--profile-dir DIR] [--parent-kernel PATH]
 
 Phases, in order; any failure exits non-zero:
 
@@ -11,9 +11,11 @@ Phases, in order; any failure exits non-zero:
    and no jax (checked again at the end);
 1. environment: torch, CUDA and nvcc versions, the card's name and power
    limit, the host's CPU model and core count;
-2. build: the CUDA scan kernel (csrc/scan.cu) and the shard kernel of the
-   window-parallel search (csrc/sharded_search.cu) from the checkout's
-   sources, one nvcc for each, started together;
+2. build: the CUDA scan kernel (csrc/scan.cu), the shard kernel of the
+   window-parallel search (csrc/sharded_search.cu) and, where its source is
+   at hand (``--parent-kernel``, or ``git show`` of PARENT_REV), the shard
+   kernel it replaced, from the checkout's sources, one nvcc for each,
+   started together;
 3. kernel against its plain PyTorch version, both on the card, bit for bit,
    on random cases and the extremes (w = 32768, 65536 and 98304, lmax =
    1024), then on rows built for each branch of the kernel
@@ -22,12 +24,19 @@ Phases, in order; any failure exits non-zero:
    w = 1536 and 32768, many seeds with valid_w > w and with qlen above the
    dead level (lmax 1024), and the widest bucket (98304) with both branches
    in one call;
-3b. the legacy per-lane backend (ops/engine_jax.py) on the card against the
-   same backend on the CPU, on two-region BreakDancer-style lanes at the
-   window buckets 2048, 8192 and 32768: equal anchors and mismatch counts;
-   then the largest batch it takes in one call (8,192 reads x 4 lanes at
-   w = 32768), timed, with its peak device memory and its bound
-   (``legacy_bound``), and held against the CPU on a sample of its reads;
+3b. the legacy per-lane backend (K8, ops/engine_jax.py), which on a card
+   runs its route through the shard kernel (``_route_kernel``): the
+   route's packed buffer against the plain ``_search_kernel`` on the card,
+   byte for byte, on testing/lane_cases.py's rows at the window buckets
+   2048, 8192, 32768 and 65536 (where the int16 ``rep_w`` wraps) and nl 1,
+   2 and 4, on rows under budgets at and past the DEAD level (127), and
+   on two-region BreakDancer-style lanes at 2048, 8192 and 32768; the backend on the card against the plain one on the CPU on the
+   same lanes (equal anchors and mismatch counts); then the largest batch
+   it takes in one call (8,192 reads x 4 lanes at w = 32768) through the
+   route and once through the plain loop on the card, both timed, equal,
+   with their peak device memory, each with its own bound (``route_bound``
+   as the route works, ``legacy_bound`` as the plain loop works), and held
+   against the CPU on a sample of its reads;
 4. the CLI on small simulated pindel-text scenes: reports byte-identical to
    the golden files that pindel_tpu's NumPy backend wrote for them
    (pindel_tpu_torch/testing/golden_reports.json, kept current by
@@ -50,6 +59,10 @@ Phases, in order; any failure exits non-zero:
    of a row with two or more seeds, every lane of the others), each shape
    is timed, and each call's kernel time is split between the two
    branches' rows;
+6b. the whole device calls around the scan: ``_close_kernel`` (K2),
+   ``_far_kernel`` (K3) and ``_far_win_kernel`` (K4) at the largest chunk
+   each scene gives them, timed with CUDA events, beside the time of the
+   scan calls they make (K1's share);
 7. scenes 1 and 2 with ``--backend mesh`` (the data-parallel backend,
    parallel/mesh_fused.py), over all visible cards (the CLI) and over
    ``["cuda:0", "cuda:0"]`` (two shards on one card, through
@@ -81,16 +94,28 @@ Phases, in order; any failure exits non-zero:
    a. the shard kernel against its plain twin, bit for bit, on every case
       of testing/shard_cases.py (DEAD and 2^30 representatives, clamped
       shard tiles, backward lanes, strict mismatches next to step 0,
-      columns past 32768) and random rows, every shard at wp 1, 2, 4, 8;
+      columns past 32768) and random rows, every shard at wp 1, 2, 4, 8,
+      each also with its rows split over blocks and with its histograms in
+      device memory;
    b. ``TorchShardedBackend`` under a ``Searcher`` on a small scene against
       the NumPy oracle, over ``["cuda:0"] * 8`` at (dp, wp) = (2, 4),
       (1, 8), (4, 2) and over every visible card;
    c. phase 3b's full batch at (1, 1) and (1, 4) over cuda:0: anchors
       equal to K8's, its sampled reads equal to the twin's; every kernel
-      call held against the twin over all its rows, timed, with its bound
-      (``shard_bound``), the wall, launches and peak memory;
+      call held against the twin over all its rows, timed beside the
+      parent's kernel (the one this kernel replaced, when built), with its
+      bound (``shard_bound``), the wall, launches and peak memory;
    d. ``--backend numpy`` and ``--backend jax`` on the 16 small scenes
-      against the golden reports.
+      against the golden reports;
+   e. the shard kernel against the parent's on K8's small calls (the
+      route's calls of phase 3b's 12-read batches), timed in turns;
+10. scenes 1 and 2 at full size through ``--backend jax`` (K8 on the card,
+   so every search through the route and the shard kernel): reports
+   byte-identical to the fused runs of 5 and 6 (scene 2's also to the
+   digests), the shard kernel launched, the plain ``_search_kernel`` never
+   run on the card (``engine_jax.PLAIN_ON_CARD``), with the wall, the
+   legacy rows and the launches; the largest shard call of each scene is
+   held against the twin and timed beside the parent's kernel.
 
 The script imports torch, numpy and pindel_tpu_torch, and no jax.
 ``--profile-dir`` also traces one run of each full-size scene with
@@ -114,6 +139,10 @@ import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+# the commit whose shard kernel (csrc/sharded_search.cu) the redesign
+# replaced, timed beside it where its source is at hand
+PARENT_REV = "6efbcdb"
+PARENT_SOURCE = "pindel_tpu_torch/csrc/sharded_search.cu"
 MAX_FALLBACK = 0.01
 TIMED_RUNS = 3
 # the H100 SXM's published peaks (NVIDIA's H100 datasheet): HBM bytes/s,
@@ -146,16 +175,25 @@ HOSTS_TIMED = [("scene1", "scene 1", ["-w", "1"], "files", (1, 2, 3)),
 HOSTS_PHASES = ("Matching close ends", "multihost: wait for worker windows",
                 "Searching far ends", "Searching and reporting variations")
 # phase 9: the window-parallel search (K9).  int32 operations of the shard
-# kernel (csrc/sharded_search.cu) as it does the work: per candidate of its
-# columns the seed test (the lane and column split, the key, the tile
-# position, the byte load, the valid-column and seed compares); per step
-# that a seeded candidate walks (to the step that kills it, or the last):
-# the tile byte load, the strict compare, the N compare, the xor and add to
-# its count, the last-mismatch select, the death compare, the level slot's
-# address, the count atomic, the key-level compare, the strict bit's compare
-# and or, the key atomic
-SHARD_SEED_OPS = 7
+# kernel (csrc/sharded_search.cu) as it does the work since its redesign:
+# per word of 4 columns the seed test (two word loads, the funnel shift, the
+# byte compare, the mask, the multiply and shift that gather the 4 bits,
+# the valid-column mask); per seeded candidate its first PATTERN_STEPS steps
+# by pattern (three tile and three query word loads, four funnel shifts,
+# two byte compares, two masks, two multiplies, two shifts and the or that
+# build the 8-bit pattern, the bin's count and key atomics, the survivor's
+# popc and compare); per step walked after those (to the step that kills a
+# candidate, or the last): the tile byte load, the strict compare, the N
+# compare, the xor and add to its count, the last-mismatch select, the
+# death compare, the level slot's address, the count atomic, the key-level
+# compare, the strict bit's compare and or, the key atomic.  The earlier
+# count (the parent's kernel, PARENT_REV: 7 per candidate, SHARD_STEP_OPS
+# per step from step 1) is printed beside it
+SHARD_SEED_OPS_PER_WORD = 8
+SHARD_PATTERN_OPS = 24
+SHARD_PATTERN_STEPS = 8
 SHARD_STEP_OPS = 13
+EARLIER_SHARD_SEED_OPS = 7
 # the grids of the backend runs over ["cuda:0"] * 8, and the wp of the
 # full-width runs over cuda:0 (dp = 1)
 SHARD_GRIDS = [(2, 4), (1, 8), (4, 2)]
@@ -263,6 +301,13 @@ BRANCH_CASES = [
 ]
 # two-region lanes for the legacy backend: scale -> window bucket
 LEGACY_SCALES = {1: 2048, 8: 8192, 40: 32768}
+# testing/lane_cases.py batches for the route against the plain kernel:
+# window buckets (65536: the int16 rep_w wrap), lanes per read, rows
+LANE_BUCKETS = (2048, 8192, 32768, 65536)
+LANE_NLS = (1, 2, 4)
+LANE_ROWS = 64
+# (max_snp, tsec_minus) of testing/lane_cases.py:dead_level_case's runs
+DEAD_LEVEL_BUDGETS = ((130, 131), (3, 131), (131, 131))
 # the largest batch the legacy path takes in one call (MAX_CHUNK reads x 4
 # lanes at w = 32768), held against the CPU on LEGACY_SAMPLE of its reads
 LEGACY_FULL_SCALE = 40
@@ -356,29 +401,80 @@ def legacy_bound(chrom, lanes, w: int, lmax: int):
             max(dense, t_bytes) * 1e3)
 
 
-def shard_work(cnt):
-    """(seeded candidates, steps they walk) of one shard kernel call, from
-    its counts: every live seeded candidate is at level 0 at step 0 and
-    walks steps 1.. until the step that kills it or the last step."""
+def plain_in_row_groups(chrom, slice_start, *rest, w: int, lmax: int,
+                        nl: int, mpm: int, bp_start: int):
+    """``engine_jax._search_kernel`` (the plain loop) over a packed batch in
+    the row groups the backend gives it on the CPU (at most ROW_ELEMS
+    candidates), with ``_route_kernel``'s signature."""
+    from pindel_tpu_torch.ops import engine_jax
+    reverse, qq, valid_w, qlen, max_snp, tsec_minus, maxmm, max_allowed = \
+        rest
+    rows = [slice_start, reverse, qq, valid_w, qlen, max_snp, tsec_minus]
+    step = max(1, engine_jax.TorchLaneBackend.ROW_ELEMS // (nl * w))
+    parts = []
+    for lo in range(0, qq.shape[0], step):
+        x = [a[lo:lo + step] for a in rows]
+        parts.append(engine_jax._search_kernel(
+            chrom, *x, maxmm, max_allowed[lo:lo + step], w=w, lmax=lmax,
+            nl=nl, mpm=mpm, bp_start=bp_start))
+    return torch.cat(parts)
+
+
+def route_bound(calls):
+    """The least time the card could take for K8's route over the shard
+    kernel ``calls`` (args, kw, out) one run made: each call's
+    ``shard_bound``, then bytes at PEAK_BYTES for the rest of the route,
+    each read or written once: the partials read by the merge, the
+    representative's query and tile codes of every step (lmax - 1 each a
+    row and length) read by the recount, and the packed [B, 5 * lmax + 2]
+    int8 output written.  Returns (ms, the shard kernel's part in ms,
+    "operations" or "bytes" for the kernel's part of the largest call)."""
+    total = kernel = top = 0.0
+    by = "bytes"
+    for args, kw, out in calls:
+        k_ms, k_by, *_ = shard_bound(args, kw, out)
+        b, lmax = args[3].shape[0], kw["lmax"]
+        rest = (sum(o.numel() * o.element_size() for o in out)
+                + 2 * b * lmax * (lmax - 1) + b * (5 * lmax + 2))
+        kernel += k_ms
+        total += k_ms + rest / PEAK_BYTES * 1e3
+        if k_ms > top:
+            top, by = k_ms, k_by
+    return total, kernel, by
+
+
+def shard_work(cnt, after: int = 0):
+    """(seeded candidates, steps they walk after step ``after``) of one
+    shard kernel call, from its counts: every live seeded candidate is at
+    level 0 at step 0 and walks steps 1.. until the step that kills it or
+    the last step."""
     alive = cnt[:, :, :-1].sum(dim=2, dtype=torch.int64)
     dead = cnt[:, :, -1].long()
+    after = min(after, cnt.shape[1] - 1)
     return (int(alive[:, 0].sum()),
-            int(alive[:, 1:].sum()) + int((dead[:, -1] - dead[:, 0]).sum()))
+            int(alive[:, after + 1:].sum())
+            + int((dead[:, -1] - dead[:, after]).sum()))
 
 
 def shard_bound(args, kw, out):
     """The least time the card could take for one shard kernel call: its
-    int32 operations (SHARD_SEED_OPS per candidate of its columns,
-    SHARD_STEP_OPS per step a seeded candidate walks, counted from this
-    call's output) at PEAK_INT32_OPS, or its bytes (each lane's tile span
-    of the chromosome and every other input read once, the partials written
-    once) at PEAK_BYTES, whichever is longer.  Returns (ms, "operations" or
-    "bytes", seeded candidates, walked steps)."""
+    int32 operations (SHARD_SEED_OPS_PER_WORD per 4 candidates of its
+    columns, SHARD_PATTERN_OPS per seeded candidate, SHARD_STEP_OPS per step
+    a seeded candidate walks after step SHARD_PATTERN_STEPS, counted from
+    this call's output) at PEAK_INT32_OPS, or its bytes (each lane's tile
+    span of the chromosome and every other input read once, the partials
+    written once) at PEAK_BYTES, whichever is longer.  Returns (ms,
+    "operations" or "bytes", seeded candidates, walked steps, and the
+    earlier count in ms: EARLIER_SHARD_SEED_OPS per candidate and
+    SHARD_STEP_OPS per step walked from step 1)."""
     _chrom, slice_start, reverse, qq, valid_w, max_snp, tsec_minus = args
     b, nl = slice_start.shape
     cands = b * nl * kw["w_local"]
     seeded, walked = shard_work(out[0])
-    ops = cands * SHARD_SEED_OPS + walked * SHARD_STEP_OPS
+    _seeded, walked_on = shard_work(out[0], SHARD_PATTERN_STEPS)
+    ops = (cands * SHARD_SEED_OPS_PER_WORD / 4 + seeded * SHARD_PATTERN_OPS
+           + walked_on * SHARD_STEP_OPS)
+    earlier = cands * EARLIER_SHARD_SEED_OPS + walked * SHARD_STEP_OPS
     nbytes = (b * nl * (kw["w_local"] + kw["lmax"])
               + sum(x.numel() * x.element_size()
                     for x in (slice_start, reverse, qq, valid_w, max_snp,
@@ -386,7 +482,76 @@ def shard_bound(args, kw, out):
               + sum(o.numel() * o.element_size() for o in out))
     t_ops, t_bytes = ops / PEAK_INT32_OPS, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes", seeded, walked)
+            "operations" if t_ops >= t_bytes else "bytes", seeded, walked,
+            max(earlier / PEAK_INT32_OPS, t_bytes) * 1e3)
+
+
+def parent_source(path):
+    """The parent's shard kernel source: ``path`` if given, else ``git
+    show`` of PARENT_REV from this checkout's history, written under the
+    build directory; None where neither is at hand."""
+    if path:
+        return path
+    res = subprocess.run(["git", "-C", REPO, "show",
+                          f"{PARENT_REV}:{PARENT_SOURCE}"],
+                         capture_output=True)
+    if res.returncode != 0:
+        return None
+    out = os.path.join(REPO, "pindel_tpu_torch", "build",
+                       "sharded_search_parent.cu")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    with open(out, "wb") as fh:
+        fh.write(res.stdout)
+    return out
+
+
+def parent_kernel(library: str):
+    """The parent's shard kernel from its built library, called as
+    ``shard_partials_cuda`` is (its C entry point: one block per row, the
+    row's queries staged in shared memory)."""
+    import ctypes
+    lib = ctypes.CDLL(library)
+    lib.pt_shard_partials.argtypes = (
+        [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 7
+        + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+    lib.pt_shard_partials.restype = ctypes.c_int
+
+    def call(chrom, slice_start, reverse, qq, valid_w, max_snp, tsec_minus,
+             *, off, w_total, w_local, lmax, nl, mpm, t_levels, s_levels):
+        b = qq.shape[0]
+        cnt = torch.empty((b, lmax, t_levels + 2), dtype=torch.int32,
+                          device=chrom.device)
+        key = torch.empty((b, lmax, s_levels + 2), dtype=torch.int32,
+                          device=chrom.device)
+        err = lib.pt_shard_partials(
+            chrom.data_ptr(), chrom.shape[0], slice_start.data_ptr(),
+            reverse.data_ptr(), qq.data_ptr(), valid_w.data_ptr(),
+            tsec_minus.data_ptr(), cnt.data_ptr(), key.data_ptr(), b, nl,
+            w_total, w_local, off, lmax, mpm, t_levels, s_levels,
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"parent shard kernel: CUDA error {err}")
+        return cnt, key
+    return call
+
+
+def packed_args(chrom_t, maxmm_t, lanes, ms, tm, rate: float, w: int,
+                lmax: int):
+    """The ten device tensors of K8's packed kernel for a batch of lanes,
+    packed as ``TorchLaneBackend.run`` packs them."""
+    from pindel_tpu_torch.ops.engine_jax import pack_lanes
+    nl = max(len(read_lanes) for read_lanes in lanes)
+    slice_start, rev, qq, valid_w = pack_lanes(lanes, len(lanes), nl, w,
+                                               lmax)[:4]
+    qlen = np.array([len(read_lanes[0].query) for read_lanes in lanes],
+                    np.int32)
+    max_allowed = np.float32(qlen.astype(np.float64) * np.float64(rate))
+    host = (slice_start, rev, qq, valid_w, qlen, np.array(ms, np.int32),
+            np.array(tm, np.int32))
+    dev = chrom_t.device
+    return ([chrom_t] + [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                         for a in host]
+            + [maxmm_t, torch.from_numpy(max_allowed).to(dev)]), nl
 
 
 def time_ms(fn, reps: int) -> float:
@@ -394,6 +559,28 @@ def time_ms(fn, reps: int) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Device time per call of ``fn``: the calls are queued behind a spin of
+    the card (long enough to queue them all), so that the host's time to
+    launch them does not show between them, as it does for small calls."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    fn()
+    torch.cuda.synchronize()
+    host_s = time.monotonic() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    # about 1.5e9 cycles a second; queue reps calls with room to spare
+    torch.cuda._sleep(int(2 * reps * host_s * 1.5e9) + 1000)
     start.record()
     for _ in range(reps):
         fn()
@@ -424,6 +611,9 @@ def main() -> int:
     ap.add_argument("--profile-dir", default=None,
                     help="also trace a run of each full-size scene with "
                          "torch.profiler and write its kernel table here")
+    ap.add_argument("--parent-kernel", default=None,
+                    help="the source of the shard kernel the redesign "
+                         f"replaced (default: git show {PARENT_REV})")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this needs a CUDA card")
@@ -433,7 +623,10 @@ def main() -> int:
     from pindel_tpu_torch.__main__ import main as port_main
     from pindel_tpu_torch.ops import (engine_fused, engine_jax, scan_cuda,
                                       sharded_search_cuda)
+    from pindel_tpu_torch.ops import sharded_search as sss
     from pindel_tpu_torch.ops.scan import scan_rows_ref
+    from pindel_tpu_torch.testing.lane_cases import (dead_level_case,
+                                                     lane_case)
     from pindel_tpu_torch.testing.scan_cases import KINDS, branch_case
     from pindel_tpu_torch.pipeline import g_fallback, g_timer, run_files
     from pindel_tpu_torch.testing.scenes import (BAM_SCENES, SCENE1,
@@ -469,9 +662,22 @@ def main() -> int:
         info = module.build(force=True, ptxas_info=True)
         return info, time.monotonic() - t0
 
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        builds = {name: pool.submit(timed_build, module) for name, module in
-                  (("scan", scan_cuda), ("shard", sharded_search_cuda))}
+    parent_src = parent_source(args.parent_kernel)
+    parent_lib = os.path.join(os.path.dirname(sharded_search_cuda.LIBRARY),
+                              "libpt_sharded_parent.so")
+
+    class ParentBuild:
+        @staticmethod
+        def build(force, ptxas_info):
+            return scan_cuda.compile_library(parent_src, parent_lib, force,
+                                             ptxas_info)
+
+    modules = [("scan", scan_cuda), ("shard", sharded_search_cuda)]
+    if parent_src:
+        modules.append(("parent shard", ParentBuild))
+    with concurrent.futures.ThreadPoolExecutor(len(modules)) as pool:
+        builds = {name: pool.submit(timed_build, module)
+                  for name, module in modules}
         for name, future in builds.items():
             info, sec = future.result()
             log(f"build: {name} kernel built in {sec:.3f} s")
@@ -479,6 +685,11 @@ def main() -> int:
                 if any(k in line for k in ("entry function", "registers",
                                            "spill")):
                     log("  ptxas: " + line.strip())
+    parent_shard = parent_kernel(parent_lib) if parent_src else None
+    log(f"parent shard kernel ({PARENT_REV}): "
+        + (f"built from {parent_src}" if parent_src else
+           "source not at hand (no --parent-kernel, no git history); its "
+           "times are not measured"))
 
     dev = torch.device("cuda")
     max_err = 0
@@ -507,13 +718,88 @@ def main() -> int:
             fail(f"kernel disagrees with its plain version on {label} "
                  f"(max {err})")
 
-    # ---- 3b. legacy per-lane backend: card against CPU
+    # ---- 3b. legacy per-lane backend (K8): the route on the card
+    from pindel_tpu_torch.config import Settings
+    settings_l = Settings()
+    lane_kw = dict(lmax=128, mpm=settings_l.min_perfect_match_around_bp)
+    for w in LANE_BUCKETS:
+        for nl in LANE_NLS:
+            arrays = lane_case(w + nl, w=w, nl=nl, rows=LANE_ROWS)
+            case = [torch.from_numpy(np.array(a)).to(dev) for a in arrays]
+            kw = dict(lane_kw, w=w, nl=nl, bp_start=10)
+            got = engine_jax._route_kernel(*case, **kw)
+            want = engine_jax._search_kernel(*case, **kw)
+            if not torch.equal(got, want):
+                fail(f"K8 route at w={w} nl={nl}: packed buffer differs "
+                     "from the plain kernel's on the card")
+            emit, _mm, _lane, rep_w, _full = engine_jax.unpack_kernel_output(
+                got.cpu().numpy(), 128)
+            wraps = int((rep_w[emit] < 0).sum())
+            if w == 65536 and not wraps:
+                fail(f"K8 route at w={w} nl={nl}: no emission past the "
+                     "int16 wrap")
+            log(f"K8 route vs plain on the card, lane cases w={w} nl={nl}: "
+                f"{LANE_ROWS} rows, packed buffers byte-identical, "
+                f"{int(emit.sum())} emissions ({wraps} with a wrapped "
+                "int16 rep_w)")
+    # budgets at and past the DEAD level (-a 130, a budget table reaching
+    # 127): the kernel keeps its histograms in device memory there
+    past_dead = [(f"dead-level rows ms={ms} tm={tm}", dead_level_case(ms, tm))
+                 for ms, tm in DEAD_LEVEL_BUDGETS]
+    for ms, tm in ((3, 130), (130, 140)):
+        arrays = list(lane_case(ms + tm, w=512, nl=2, rows=8, lmax=256))
+        arrays[6] = np.full(8, ms, np.int32)
+        arrays[7] = np.full(8, tm, np.int32)
+        past_dead.append((f"lane case lmax=256 ms={ms} tm={tm}",
+                          (arrays, dict(w=512, lmax=256, nl=2, mpm=3,
+                                        bp_start=10))))
+    for label, (arrays, kw) in past_dead:
+        case = [torch.from_numpy(np.array(a)).to(dev) for a in arrays]
+        got = engine_jax._route_kernel(*case, **kw)
+        if not torch.equal(got, engine_jax._search_kernel(*case, **kw)):
+            fail(f"K8 route, {label}: packed buffer differs from the plain "
+                 "kernel's on the card")
+        emit = engine_jax.unpack_kernel_output(got.cpu().numpy(),
+                                               kw["lmax"])[0]
+        log(f"K8 route vs plain on the card, {label}: packed buffers "
+            f"byte-identical, {int(emit.sum())} emissions")
+    # the route's shard calls on the small two-region batches (phase 9e
+    # times them against the parent's kernel)
+    small_calls = []
+    small_launches = 0
+    real_partials = sss.shard_partials
+
+    def recording_partials(*a, **kw):
+        small_calls.append(([x.clone() for x in a], dict(kw)))
+        return real_partials(*a, **kw)
+
     for scale, bucket in LEGACY_SCALES.items():
         batch = two_region_lanes(scale, 12, scale)
-        t0 = time.monotonic()
-        on_card = legacy_anchors(batch, "cuda")
-        torch.cuda.synchronize()
-        t1 = time.monotonic()
+        chrom_s, lanes_s, ms_s, tm_s = batch
+        chrom_t = torch.from_numpy(np.array(chrom_s.seq, np.int8)).to(dev)
+        maxmm_t = torch.from_numpy(
+            np.array(settings_l.max_mismatch(), np.int32)).to(dev)
+        case, nl = packed_args(chrom_t, maxmm_t, lanes_s, ms_s, tm_s,
+                               settings_l.max_allowed_mismatch_rate, bucket,
+                               128)
+        kw = dict(lane_kw, w=bucket, nl=nl, bp_start=10)
+        if not torch.equal(engine_jax._route_kernel(*case, **kw),
+                           engine_jax._search_kernel(*case, **kw)):
+            fail(f"K8 route at w={bucket}: packed buffer differs from the "
+                 "plain kernel's on the card")
+        sss.shard_partials = recording_partials
+        sharded_search_cuda.LAUNCHES = 0
+        try:
+            t0 = time.monotonic()
+            on_card = legacy_anchors(batch, "cuda")
+            torch.cuda.synchronize()
+            t1 = time.monotonic()
+        finally:
+            sss.shard_partials = real_partials
+        small_launches += sharded_search_cuda.LAUNCHES
+        if not sharded_search_cuda.LAUNCHES:
+            fail(f"legacy backend at w={bucket}: the shard kernel never "
+                 "launched")
         on_cpu = legacy_anchors(batch, "cpu")
         t2 = time.monotonic()
         if on_card != on_cpu:
@@ -522,26 +808,75 @@ def main() -> int:
         if hits == 0:
             fail(f"legacy backend at w={bucket}: no read found a far end")
         log(f"legacy backend w={bucket}: {len(on_card)} reads x 4 lanes, "
-            f"{hits} with anchors, card equal to CPU; card {t1 - t0:.3f} s, "
-            f"CPU {t2 - t1:.3f} s  [{card}]")
+            f"{hits} with anchors, route's packed buffer byte-identical to "
+            f"the plain kernel's on the card, card (route) equal to CPU "
+            f"(plain); card {t1 - t0:.3f} s, CPU {t2 - t1:.3f} s  [{card}]")
+        del chrom_t, case
 
-    # the same lanes at the size the path would really get
+    # the same lanes at the size the path would really get: the route, then
+    # the plain loop once, both on the card
     n_full = engine_jax.TorchLaneBackend.MAX_CHUNK
     t0 = time.monotonic()
     chrom, lanes, ms, tm = two_region_lanes(LEGACY_FULL_SCALE, n_full,
                                             LEGACY_FULL_SCALE)
     log(f"legacy backend full batch: {n_full} reads x 4 lanes built in "
         f"{time.monotonic() - t0:.1f} s")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    g_timer.reset()
-    t0 = time.monotonic()
-    on_card = legacy_anchors((chrom, lanes, ms, tm), "cuda")
-    torch.cuda.synchronize()
-    card_s = legacy_card_s = time.monotonic() - t0
-    peak = torch.cuda.max_memory_allocated() - base
-    phases = g_timer.items()
+    legacy_full = {}
+    route_calls = []
+
+    def recording_route(*a, **kw):
+        out = real_partials(*a, **kw)
+        route_calls.append((a, dict(kw), out))
+        return out
+
+    route_kernel = engine_jax._route_kernel
+    for search, kernel in (("route", route_kernel),
+                           ("plain", plain_in_row_groups)):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        g_timer.reset()
+        sharded_search_cuda.LAUNCHES = 0
+        # the backend runs _route_kernel on the card; the plain loop takes
+        # its place for the comparison
+        engine_jax._route_kernel = kernel
+        sss.shard_partials = recording_route
+        try:
+            t0 = time.monotonic()
+            got = legacy_anchors((chrom, lanes, ms, tm), "cuda")
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+        finally:
+            engine_jax._route_kernel = route_kernel
+            sss.shard_partials = real_partials
+        legacy_full[search] = dict(
+            anchors=got, wall=wall, phases=g_timer.items(),
+            peak=torch.cuda.max_memory_allocated() - base,
+            launches=sharded_search_cuda.LAUNCHES)
+    if legacy_full["route"]["launches"] != 1 or \
+            legacy_full["plain"]["launches"]:
+        fail(f"legacy backend full batch: shard kernel launches "
+             f"{legacy_full['route']['launches']} through the route, "
+             f"{legacy_full['plain']['launches']} through the plain loop")
+    on_card = legacy_full["route"]["anchors"]
+    if on_card != legacy_full["plain"]["anchors"]:
+        bad = sum(a != b for a, b in zip(on_card,
+                                         legacy_full["plain"]["anchors"]))
+        fail(f"legacy backend full batch: the route and the plain loop "
+             f"disagree on {bad} reads")
+    legacy_card_s = legacy_full["route"]["wall"]
+    legacy_plain_s = legacy_full["plain"]["wall"]
+    search_s = {k: sum(sec for name, sec in v["phases"].items()
+                       if name.startswith("device: kernel+xfer"))
+                for k, v in legacy_full.items()}
+    r_bound, r_kernel_bound, r_bound_by = route_bound(route_calls)
+    del route_calls
+    legacy_route = dict(launches=legacy_full["route"]["launches"],
+                        wall=legacy_card_s, plain_wall=legacy_plain_s,
+                        search_ms=search_s["route"] * 1e3,
+                        plain_search_ms=search_s["plain"] * 1e3,
+                        bound_ms=r_bound, bound_by=r_bound_by)
     sample = range(0, n_full, n_full // LEGACY_SAMPLE + 1)   # both strands
     t0 = time.monotonic()
     on_cpu = legacy_anchors((chrom, [lanes[i] for i in sample],
@@ -556,21 +891,42 @@ def main() -> int:
         fail("legacy backend full batch: no read found a far end")
     bound, bound_by, bound_shapes = legacy_bound(chrom, lanes, 32768, 128)
     log(f"legacy backend full batch w=32768: {n_full} reads x 4 lanes, "
-        f"{hits} with anchors, card equal to CPU on {len(sample)} sampled "
-        f"reads; card {card_s:.3f} s ({n_full / card_s:.1f} reads/s), CPU "
-        f"{cpu_s:.3f} s for the sample, peak device memory above the "
-        f"baseline {peak / 2 ** 20:.1f} MiB (row groups of "
-        f"{engine_jax.TorchLaneBackend.ROW_ELEMS} candidates)  [{card}]")
-    log(f"legacy backend full batch bound: {bound:.3f} ms ({bound_by}; "
-        f"{LEGACY_OPS} int32 operations per seeded candidate and step), "
-        f"{bound / (card_s * 1e3):.2%} of the card's {card_s:.3f} s; from the "
+        f"{hits} with anchors; the route and the plain loop on the card "
+        f"equal on every read, the CPU equal on {len(sample)} sampled "
+        f"reads; route {legacy_card_s:.3f} s ({n_full / legacy_card_s:.1f} "
+        f"reads/s, peak device memory above the baseline "
+        f"{legacy_full['route']['peak'] / 2 ** 20:.1f} MiB), plain loop "
+        f"{legacy_plain_s:.3f} s (peak "
+        f"{legacy_full['plain']['peak'] / 2 ** 20:.1f} MiB, row groups of "
+        f"{engine_jax.TorchLaneBackend.ROW_ELEMS} candidates), CPU "
+        f"{cpu_s:.3f} s for the sample  [{card}]")
+    log(f"legacy backend full batch, the route's bound: {r_bound:.4f} ms "
+        f"({r_bound_by}; the shard kernel's {r_kernel_bound:.4f} ms, then "
+        f"the partials read by the merge, the representatives' codes read "
+        f"by the recount and the packed output written, once each), "
+        f"{r_bound / legacy_route['search_ms']:.2%} of the route's search "
+        f"phase ({legacy_route['search_ms']:.3f} ms: kernel, merge, "
+        f"recount, rules, download)  [{card}]")
+    log(f"legacy backend full batch, the plain loop's bound: {bound:.3f} ms "
+        f"({bound_by}; {LEGACY_OPS} int32 operations per seeded candidate "
+        f"and step of its read, as the plain loop works), "
+        f"{bound / legacy_route['plain_search_ms']:.2%} of the plain loop's "
+        f"search phase ({legacy_route['plain_search_ms']:.3f} ms); from the "
         f"shapes alone (every candidate of [B, NL, W] for lmax steps) "
         f"{bound_shapes:.3f} ms  [{card}]")
-    for pname, sec in sorted(phases.items(), key=lambda kv: -kv[1]):
-        log(f"  phase {pname:<52s} {sec:9.3f} s  [{card}]")
+    for search in ("route", "plain"):
+        for pname, sec in sorted(legacy_full[search]["phases"].items(),
+                                 key=lambda kv: -kv[1]):
+            log(f"  {search} phase {pname:<46s} {sec:9.3f} s  [{card}]")
     # phase 9 holds the window-parallel search against K8 on this batch
     legacy_batch, legacy_on_card = (chrom, lanes, ms, tm), on_card
-    del chrom, lanes, on_card
+    # the plain kernel's runs on the card so far were comparisons; no
+    # later phase may add one
+    log(f"phase 3b ran the plain _search_kernel {engine_jax.PLAIN_ON_CARD} "
+        "times on the card, for its comparisons; the count starts again "
+        "at 0 and must stay there")
+    engine_jax.PLAIN_ON_CARD = 0
+    del chrom, lanes, on_card, legacy_full
     torch.cuda.empty_cache()
 
     def check_run(label, launches, device_run=True):
@@ -876,6 +1232,69 @@ def main() -> int:
             fail("scene 2: _far_win_kernel searched no read")
         max_err = max(max_err, scene2["max_abs_err"])
 
+        # ---- 6b. K2, K3 and K4 whole: the device time of each call at the
+        # largest chunk of each scene, beside the scan calls it makes
+        def whole_calls(label, argv, want):
+            calls = []
+            real_launch = engine_fused.TorchFusedBackend._launch
+
+            def recording(self, kernel, payload, static):
+                calls.append((kernel, self.state.chromcat,
+                              torch.from_numpy(payload).to(self.device),
+                              self.state.maxmm, dict(static)))
+                return real_launch(self, kernel, payload, static)
+
+            engine_fused.TorchFusedBackend._launch = recording
+            try:
+                run_cli(port_main, argv)
+            finally:
+                engine_fused.TorchFusedBackend._launch = real_launch
+            if reports(prefix_of(argv)) != want:
+                fail(f"{label}: the recorded run's reports differ")
+            out = {}
+            for name in ("_close_kernel", "_far_kernel", "_far_win_kernel"):
+                mine = [c for c in calls if c[0].__name__ == name]
+                if not mine:
+                    continue
+                kernel, chromcat, payload, maxmm, static = max(
+                    mine, key=lambda c: c[2].shape[0])
+
+                def call():
+                    return kernel(chromcat, payload, maxmm, **static)
+
+                scans = []
+                real_scan = engine_fused.scan_rows
+
+                def recording_scan(*a, **kw):
+                    scans.append((a, kw))
+                    return real_scan(*a, **kw)
+
+                with torch.inference_mode():
+                    ms = time_ms(call, 5)
+                    engine_fused.scan_rows = recording_scan
+                    try:
+                        call()
+                    finally:
+                        engine_fused.scan_rows = real_scan
+                    scan_ms = sum(time_ms(
+                        lambda a=a, kw=kw: scan_cuda.scan_rows_cuda(*a, **kw),
+                        5) for a, kw in scans)
+                out[name] = dict(rows=int(payload.shape[0]), calls=len(mine),
+                                 ms=ms, scan_ms=scan_ms, scans=len(scans))
+                log(f"{label} {name}: largest of {len(mine)} calls, "
+                    f"{payload.shape[0]} rows: whole call {ms:.4f} ms "
+                    f"(CUDA events around it), its {len(scans)} scan calls "
+                    f"{scan_ms:.4f} ms ({scan_ms / ms:.1%})  [{card}]")
+                del scans
+            del calls
+            torch.cuda.empty_cache()
+            return out
+
+        whole = {"scene1": whole_calls("scene 1", argv1("whole"),
+                                       scene1["want"]),
+                 "scene2": whole_calls("scene 2", argv2("whole"),
+                                       scene2["want"])}
+
         # ---- 7. scenes 1 and 2 through the data-parallel mesh backend,
         # in turns with the fused backend (fused, mesh..., then reversed)
         def run_backend(argv, devices) -> float:
@@ -1132,9 +1551,7 @@ def main() -> int:
                     launches=launches_of(med["ranks"]), wall=med["wall"])
 
         # ---- 9. the window-parallel search (K9)
-        from pindel_tpu_torch.config import Settings
         from pindel_tpu_torch.genome import Genome
-        from pindel_tpu_torch.ops import sharded_search as sss
         from pindel_tpu_torch.parallel.mesh import TorchShardedBackend
         from pindel_tpu_torch.reads import read_pindel_file
         from pindel_tpu_torch.search import Searcher
@@ -1156,20 +1573,36 @@ def main() -> int:
             case = [torch.from_numpy(np.array(a)).to(dev) for a in
                     (chrom_np, start_np, rev_np, qq_np, vw_np, ms_np, tm_np)]
             errs = []
-            for wp in (1, 2, 4, 8):
-                wl = st["w_total"] // wp
-                for k in range(wp):
-                    errs.append(compare(case, dict(
-                        off=k * wl, w_total=st["w_total"], w_local=wl,
-                        lmax=st["lmax"], nl=st["nl"], mpm=st["mpm"],
-                        t_levels=int(tm_np.max()),
-                        s_levels=int(ms_np.max())),
-                        sharded_search_cuda.shard_partials_cuda,
-                        sss.shard_partials_ref))
+            # as the kernel chooses, then with each row split over up to 8
+            # blocks, then with the histograms in device memory
+            modes = ((sharded_search_cuda.MIN_COLS,
+                      sharded_search_cuda.MAX_SMEM),
+                     (64, sharded_search_cuda.MAX_SMEM),
+                     (sharded_search_cuda.MIN_COLS, 0))
+            for min_cols, max_smem in modes:
+                saved = (sharded_search_cuda.MIN_COLS,
+                         sharded_search_cuda.MAX_SMEM)
+                sharded_search_cuda.MIN_COLS = min_cols
+                sharded_search_cuda.MAX_SMEM = max_smem
+                try:
+                    for wp in (1, 2, 4, 8):
+                        wl = st["w_total"] // wp
+                        for k in range(wp):
+                            errs.append(compare(case, dict(
+                                off=k * wl, w_total=st["w_total"],
+                                w_local=wl, lmax=st["lmax"], nl=st["nl"],
+                                mpm=st["mpm"], t_levels=int(tm_np.max()),
+                                s_levels=int(ms_np.max())),
+                                sharded_search_cuda.shard_partials_cuda,
+                                sss.shard_partials_ref))
+                finally:
+                    (sharded_search_cuda.MIN_COLS,
+                     sharded_search_cuda.MAX_SMEM) = saved
             k9_err = max(k9_err, max(errs))
             log(f"shard kernel vs plain, case {name} seed {seed}: "
                 f"{qq_np.shape[0]} rows x {st['nl']} lanes, w_total "
-                f"{st['w_total']}, {len(errs)} shard calls at wp 1/2/4/8, "
+                f"{st['w_total']}, {len(errs)} shard calls at wp 1/2/4/8 "
+                f"(rows whole, split, histograms in device memory), "
                 f"max_abs_err={max(errs)}")
         if k9_err:
             fail(f"shard kernel disagrees with its plain twin (max {k9_err})")
@@ -1221,6 +1654,27 @@ def main() -> int:
             log(f"K9 backend over {label}: {len(got)} reads, anchors equal "
                 f"to the NumPy oracle, {launches} shard launches by card "
                 f"{by_card}, {wall:.3f} s  [{card}]")
+
+        def new_and_parent(args, kw, out, label):
+            """The kernel's and the parent's device ms on one call, in turns
+            (new, parent, parent, new), the parent's output held to
+            ``out``; the parent's ms is None where it was not built."""
+            def new():
+                return sharded_search_cuda.shard_partials_cuda(*args, **kw)
+            if parent_shard is None:
+                return device_ms(new, 10), None
+
+            def old():
+                return parent_shard(*args, **kw)
+            if not all(torch.equal(a, b) for a, b in zip(old(), out)):
+                fail(f"{label}: the parent's kernel disagrees with this "
+                     "kernel")
+            a1, b1 = device_ms(new, 10), device_ms(old, 10)
+            b2, a2 = device_ms(old, 10), device_ms(new, 10)
+            return (a1 + a2) / 2, (b1 + b2) / 2
+
+        def fmt_ms(ms):
+            return "not measured" if ms is None else f"{ms:.4f} ms"
 
         # c. full width: phase 3b's batch (8,192 reads x 4 lanes, w =
         # 32768) at (1, 1) and (1, 4) over cuda:0, against K8's anchors
@@ -1277,8 +1731,7 @@ def main() -> int:
             # rows (in chunks, each held against the kernel's rows), bound
             shards = []
             for args, kw, out in calls:
-                ms_k = time_ms(lambda: sharded_search_cuda.
-                               shard_partials_cuda(*args, **kw), 5)
+                ms_k, parent_ms = new_and_parent(args, kw, out, label)
                 rows = args[1].shape[0]
                 plain_ms, err = 0.0, 0
                 for lo in range(0, rows, SHARD_PLAIN_ROWS):
@@ -1295,17 +1748,28 @@ def main() -> int:
                         o = o[lo:lo + SHARD_PLAIN_ROWS]
                         err = max(err, int((w.long() - o.long()).abs().max()))
                     del want
-                bound, bound_by, seeded, walked = shard_bound(args, kw, out)
+                bound, bound_by, seeded, walked, earlier = shard_bound(
+                    args, kw, out)
                 shards.append(dict(ms=ms_k, plain_ms=plain_ms, err=err,
-                                   bound_ms=bound, bound_by=bound_by))
+                                   bound_ms=bound, bound_by=bound_by,
+                                   bound_earlier_ms=earlier,
+                                   parent_ms=parent_ms))
                 k9_err = max(k9_err, err)
                 log(f"{label} shard off={kw['off']} w_local={kw['w_local']}"
-                    f" rows={rows}: kernel {ms_k:.4f} ms, plain twin "
+                    f" rows={rows}: kernel {ms_k:.4f} ms, parent's kernel "
+                    f"{fmt_ms(parent_ms)}, plain twin "
                     f"{plain_ms:.3f} ms, bound {bound:.4f} ms ({bound_by}; "
                     f"{seeded} seeded candidates walking {walked} steps, "
-                    f"{SHARD_STEP_OPS} int32 operations per step, "
-                    f"{SHARD_SEED_OPS} per candidate), {bound / ms_k:.1%} of "
-                    f"it, max_abs_err={err}  [{card}]")
+                    f"{SHARD_SEED_OPS_PER_WORD} int32 operations per 4 "
+                    f"candidates, {SHARD_PATTERN_OPS} per seeded candidate, "
+                    f"{SHARD_STEP_OPS} per step walked after step "
+                    f"{SHARD_PATTERN_STEPS}), {bound / ms_k:.1%} of it; the "
+                    f"earlier count ({EARLIER_SHARD_SEED_OPS} per candidate, "
+                    f"{SHARD_STEP_OPS} per walked step) {earlier:.4f} ms, "
+                    f"{earlier / ms_k:.1%}; the parent's kernel at "
+                    + ("-" if parent_ms is None else
+                       f"{bound / parent_ms:.1%} / {earlier / parent_ms:.1%}")
+                    + f", max_abs_err={err}  [{card}]")
             del calls
             if k9_err:
                 fail(f"{label}: shard kernel disagrees with its plain twin "
@@ -1324,7 +1788,7 @@ def main() -> int:
             torch.cuda.empty_cache()
 
         # d. --backend numpy and jax on the 16 small scenes
-        jax_rows = 0
+        jax_rows = jax_small_launches = 0
         for name in ("numpy", "jax"):
             runs9 = [(scene, None) for scene in SMALL_SCENES] + [
                 (scene, spec) for scene, spec in BAM_SCENES.items()]
@@ -1343,23 +1807,145 @@ def main() -> int:
                 run_cli(port_main, argv + ["--backend", name])
                 same_reports(f"--backend {name} scene {scene}",
                              golden[scene], reports(prefix))
-                if scan_cuda.LAUNCHES or sharded_search_cuda.LAUNCHES:
-                    fail(f"--backend {name} scene {scene}: a kernel of "
-                         "another backend launched")
-                if name == "numpy" and engine_jax.LEGACY_ROWS:
+                if scan_cuda.LAUNCHES:
+                    fail(f"--backend {name} scene {scene}: the scan kernel "
+                         "of another backend launched")
+                if name == "numpy" and (engine_jax.LEGACY_ROWS
+                                        or sharded_search_cuda.LAUNCHES):
                     fail(f"--backend numpy scene {scene}: the device "
                          "searched")
+                if name == "jax" and engine_jax.LEGACY_ROWS and \
+                        not sharded_search_cuda.LAUNCHES:
+                    fail(f"--backend jax scene {scene}: K8 searched without "
+                         "the shard kernel")
+                if engine_jax.PLAIN_ON_CARD:
+                    fail(f"--backend {name} scene {scene}: the plain "
+                         "_search_kernel ran on the card")
                 jax_rows += engine_jax.LEGACY_ROWS
+                if name == "jax":
+                    jax_small_launches += sharded_search_cuda.LAUNCHES
             log(f"--backend {name}: {len(runs9)} small scenes (8 text, 8 "
                 "BAM) byte-identical to the golden reports"
-                + (f", {jax_rows} reads searched by K8 on the card"
+                + (f", {jax_rows} reads searched by K8 on the card through "
+                   f"{jax_small_launches} shard kernel launches"
                    if name == "jax" else ", no device search"))
         if jax_rows == 0:
             fail("--backend jax searched no read on the card")
 
+        # e. K8's small calls (the route's shard calls of phase 3b's 12-read
+        # batches): this kernel against the twin and the parent's kernel
+        small = []
+        for args, kw in small_calls:
+            out = sharded_search_cuda.shard_partials_cuda(*args, **kw)
+            want = sss.shard_partials_ref(*args, **kw)
+            err = max(int((a.long() - b.long()).abs().max())
+                      for a, b in zip(out, want))
+            k9_err = max(k9_err, err)
+            ms_k, parent_ms = new_and_parent(args, kw, out, "K8 small call")
+            bound, bound_by, seeded, walked, earlier = shard_bound(args, kw,
+                                                                   out)
+            small.append(dict(w=kw["w_local"], rows=args[1].shape[0],
+                              ms=ms_k, parent_ms=parent_ms, bound_ms=bound,
+                              bound_earlier_ms=earlier))
+            log(f"K8 small call w={kw['w_local']} rows={args[1].shape[0]} "
+                f"nl={kw['nl']} (blocks per row "
+                f"{sharded_search_cuda.row_splits(args[1].shape[0], kw['w_local'])}"
+                f"): kernel {ms_k:.4f} ms, parent's kernel "
+                f"{fmt_ms(parent_ms)}, bound {bound:.4f} ms ({bound_by}; "
+                f"{seeded} seeded candidates walking {walked} steps; the "
+                f"earlier count {earlier:.4f} ms), max_abs_err={err}  "
+                f"[{card}]")
+        if k9_err:
+            fail(f"K8 small calls: shard kernel disagrees with its twin "
+                 f"(max {k9_err})")
+        del small_calls
+
+        # ---- 10. scenes 1 and 2 through --backend jax: K8 on the card, so
+        # every search through the route and the shard kernel
+        jax_paths = {}
+        for key, label, argv_of, n, unit, base in (
+                ("scene1", "scene 1", argv1, n1, "reads", scene1),
+                ("scene2", "scene 2", argv2, n2, "read pairs", scene2)):
+            argv = argv_of("jax") + ["--backend", "jax"]
+            largest = {"size": -1, "calls": 0}
+
+            def recording_calls(*a, **kw):
+                # keeps the largest call (rows x lanes x columns)
+                out = real_partials(*a, **kw)
+                size = a[1].shape[0] * kw["nl"] * kw["w_local"]
+                largest["calls"] += 1
+                if size > largest["size"]:
+                    largest.update(size=size, call=(
+                        [a[0]] + [x.clone() for x in a[1:]], dict(kw),
+                        [o.clone() for o in out]))
+                return out
+
+            reset_counts()
+            g_timer.reset()
+            sss.shard_partials = recording_calls
+            try:
+                wall = run_cli(port_main, argv)
+            finally:
+                sss.shard_partials = real_partials
+            launches = sharded_search_cuda.LAUNCHES
+            rows = engine_jax.LEGACY_ROWS
+            phases = g_timer.items()
+            got = reports(prefix_of(argv))
+            if got != base["want"]:
+                fail(f"{label} --backend jax: reports differ from the fused "
+                     "kernel runs'")
+            if key == "scene2" and digests(got) != want_digests:
+                fail(f"{label} --backend jax: reports differ from the "
+                     "reference's digests")
+            if launches == 0:
+                fail(f"{label} --backend jax: the shard kernel never "
+                     "launched")
+            if engine_jax.PLAIN_ON_CARD:
+                fail(f"{label} --backend jax: the plain _search_kernel ran "
+                     f"{engine_jax.PLAIN_ON_CARD} times on the card")
+            if scan_cuda.LAUNCHES:
+                fail(f"{label} --backend jax: the scan kernel launched")
+            log(f"{label} --backend jax: wall {wall:.3f} s, {n / wall:.1f} "
+                f"{unit}/s, reports byte-identical to the fused runs of "
+                f"phase 5/6{' and the digests' if key == 'scene2' else ''}, "
+                f"legacy rows {rows}, shard kernel launches {launches}, "
+                f"plain _search_kernel on the card 0  [{card}]")
+            for pname, sec in sorted(phases.items(),
+                                     key=lambda kv: -kv[1])[:10]:
+                log(f"  phase {pname:<52s} {sec:9.3f} s  [{card}]")
+            # the largest call: against the twin, timed beside the parent's
+            args, kw, out = largest.pop("call")
+            want = sss.shard_partials_ref(*args, **kw)
+            err = max(int((a.long() - b.long()).abs().max())
+                      for a, b in zip(out, want))
+            k9_err = max(k9_err, err)
+            ms_k, parent_ms = new_and_parent(args, kw, out, label)
+            bound, bound_by, seeded, walked, earlier = shard_bound(args, kw,
+                                                                   out)
+            log(f"{label} --backend jax: largest of {largest['calls']} shard "
+                f"calls, {args[1].shape[0]} rows x {kw['nl']} lanes, w="
+                f"{kw['w_local']}: kernel {ms_k:.4f} ms, parent's kernel "
+                f"{fmt_ms(parent_ms)}, plain twin equal (max_abs_err={err}), "
+                f"bound {bound:.4f} ms ({bound_by}), {bound / ms_k:.1%} of "
+                f"it; the earlier count {earlier:.4f} ms  [{card}]")
+            if err:
+                fail(f"{label} --backend jax: shard kernel disagrees with "
+                     f"its twin (max {err})")
+            jax_paths[f"{key}_jax"] = dict(
+                launches=launches, wall=wall, legacy_rows=rows,
+                largest=dict(rows=int(args[1].shape[0]), nl=kw["nl"],
+                             w=kw["w_local"], ms=ms_k, parent_ms=parent_ms,
+                             bound_ms=bound, bound_earlier_ms=earlier))
+            del args, want, out
+            torch.cuda.empty_cache()
+
     loaded = reference_modules()
     if loaded:
         fail(f"a run loaded {loaded}")
+    if engine_jax.PLAIN_ON_CARD:
+        fail(f"the plain _search_kernel ran on the card "
+             f"{engine_jax.PLAIN_ON_CARD} times outside phase 3b's "
+             "comparisons")
     paths = {label: {k: v[k] for k in ("launches", *SCAN_KEYS, "wall")}
              for label, v in (("scene1", scene1), ("scene2", scene2))}
     paths.update(mesh_paths)
@@ -1374,22 +1960,37 @@ def main() -> int:
                     bound_ms=scene1["bound_ms"],
                     bound_by=scene1["bound_by"],
                     bound_dense_ms=scene1["bound_dense_ms"], library_ms=None,
-                    paths=paths)]
-    # K9 at its largest shape (the full batch at wp = 1); launches over the
-    # backend runs of phase 9b and the timed full-width runs of 9c
+                    paths=paths, whole_calls=whole)]
+    # K9 at its largest shape (the full batch at wp = 1), which is also
+    # K8's largest batch through the route; launches over the route's full
+    # batch (3b), the K9 backend runs (9b), the timed full-width runs (9c),
+    # --backend jax on the small scenes (9d) and on scenes 1 and 2 (10)
     top = k9_full[1]["shards"][0]
+    k9_paths = {f"full_wp{wp}": dict(
+        launches=v["launches"], wall=v["wall"],
+        ms=sum(x["ms"] for x in v["shards"]),
+        parent_ms=(None if parent_shard is None else
+                   sum(x["parent_ms"] for x in v["shards"])),
+        plain_ms=sum(x["plain_ms"] for x in v["shards"]),
+        bound_ms=sum(x["bound_ms"] for x in v["shards"]),
+        bound_earlier_ms=sum(x["bound_earlier_ms"] for x in v["shards"]))
+        for wp, v in k9_full.items()}
+    k9_paths["k9_backend_small_scene"] = dict(
+        launches=k9_launches - sum(v["launches"] for v in k9_full.values()))
+    k9_paths["k8_route_full_batch"] = legacy_route
+    k9_paths["k8_small_calls"] = dict(launches=small_launches, calls=small)
+    k9_paths["backend_jax_small_scenes"] = dict(launches=jax_small_launches)
+    k9_paths.update(jax_paths)
     kernels.append(dict(
         name="sharded_search", route="cuda",
         source="pindel_tpu_torch/csrc/sharded_search.cu",
-        replaces="pindel_tpu/parallel/mesh.py:46", launches=k9_launches,
-        max_abs_err=k9_err, ms=top["ms"], plain_ms=top["plain_ms"],
-        bound_ms=top["bound_ms"], bound_by=top["bound_by"], library_ms=None,
-        paths={f"full_wp{wp}": dict(
-            launches=v["launches"], wall=v["wall"],
-            ms=sum(x["ms"] for x in v["shards"]),
-            plain_ms=sum(x["plain_ms"] for x in v["shards"]),
-            bound_ms=sum(x["bound_ms"] for x in v["shards"]))
-            for wp, v in k9_full.items()}))
+        replaces="pindel_tpu/parallel/mesh.py:46",
+        also_replaces="pindel_tpu/ops/engine_jax.py:48",
+        launches=sum(v["launches"] for v in k9_paths.values()),
+        max_abs_err=k9_err, ms=top["ms"], parent_ms=top["parent_ms"],
+        plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
+        bound_by=top["bound_by"], bound_earlier_ms=top["bound_earlier_ms"],
+        library_ms=None, paths=k9_paths))
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

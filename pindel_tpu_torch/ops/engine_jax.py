@@ -9,8 +9,12 @@ complement backward strand).  Every lane is normalized to a forward tile
 candidate's cumulative mismatch count over the prefix length.  Per length
 it emits the aggregates the emission rules need, and the rules are applied
 on the device; the output is the JAX kernel's packed int8 buffer, bit for
-bit.  It is XLA code in the JAX package, not a Pallas kernel, and runs here
-as plain torch ops on the backend's device.
+bit.  It is XLA code in the JAX package, not a Pallas kernel; here it is
+the plain version, a step loop of torch ops.  On a card the backend runs
+``_route_kernel`` instead: the same search as one shard of the window-
+parallel search (ops/sharded_search.py, the CUDA shard kernel at one shard
+over the whole window), its merge, recount and emission rules, packed into
+the same buffer bit for bit.
 
 ``TorchLaneBackend`` is the counterpart of ``JaxBackend``: the Searcher's
 per-lane ``run`` interface, which ``TorchFusedBackend.run`` hands the lanes
@@ -30,6 +34,7 @@ import torch
 from pindel_tpu_torch import dna
 from pindel_tpu_torch.config import MAX_READ_LENGTH
 from pindel_tpu_torch.genome import SPACER
+from pindel_tpu_torch.ops import sharded_search as ss
 from pindel_tpu_torch.ops.search_np import Lane
 from pindel_tpu_torch.profiling import g_timer
 from pindel_tpu_torch.reads import AnchorSet
@@ -38,6 +43,7 @@ DEAD = 127      # dead-candidate mismatch level sentinel
 NEVER = -(1 << 20)   # step of the last strict mismatch: none yet
 
 LEGACY_ROWS = 0      # reads searched by TorchLaneBackend.run since import
+PLAIN_ON_CARD = 0    # _search_kernel calls on a CUDA device since import
 
 _I32 = torch.int32
 
@@ -65,7 +71,10 @@ def _search_kernel(chrom, slice_start, reverse, qq, valid_w, qlen,
     flag, the min level, the representative's lane and (int16) offset,
     then the int16 whole-read mismatch count at the last emission.
     """
+    global PLAIN_ON_CARD
     dev = chrom.device
+    if dev.type == "cuda":
+        PLAIN_ON_CARD += 1
     b = qq.shape[0]
     assert slice_start.shape == (b, nl), (slice_start.shape, nl)
     tile_len = w + lmax
@@ -154,7 +163,15 @@ def _search_kernel(chrom, slice_start, reverse, qq, valid_w, qlen,
             & ~rep_strict_bad
             & whole_read_fit)
 
-    lidx = torch.arange(lmax, dtype=_I32, device=dev)[None, :]
+    return _pack(emit, min_mm, rep_lane, rep_w, full_mm)
+
+
+def _pack(emit, min_mm, rep_lane, rep_w, full_mm):
+    """The packed [B, 5*lmax + 2] int8 buffer of ``_search_kernel``, the
+    whole-read mismatch count taken from ``full_mm`` at the last
+    emission."""
+    lmax = emit.shape[1]
+    lidx = torch.arange(lmax, dtype=_I32, device=emit.device)[None, :]
     last_emit = torch.where(emit, lidx, -1).amax(dim=1)
     full_last = torch.gather(full_mm, 1,
                              last_emit.clamp(min=0).long()[:, None])[:, 0]
@@ -169,6 +186,37 @@ def _search_kernel(chrom, slice_start, reverse, qq, valid_w, qlen,
         rep_w16.contiguous().view(torch.int8),
         full_last[:, None].contiguous().view(torch.int8),
     ], dim=1)
+
+
+def _route_kernel(chrom, slice_start, reverse, qq, valid_w, qlen,
+                  max_snp, tsec_minus, maxmm, max_allowed,
+                  *, w: int, lmax: int, nl: int, mpm: int, bp_start: int):
+    """``_search_kernel``'s packed buffer, bit for bit, from the window-
+    parallel search at one shard over the whole window: the shard kernel's
+    per-step partials (its plain twin on CPU tensors), their merge, the
+    recount of the representatives' whole-read mismatches and the emission
+    rules (ops/sharded_search.py).  Where no candidate sits at the min level
+    (every one alive above ``max_snp``, none DEAD) ``_search_kernel``'s
+    argmax over no match names candidate 0, so the route does too.  Budgets
+    at or above DEAD are taken as ``_search_kernel`` takes them
+    (``ss.levels``, ``ss.dead_rep_strict``)."""
+    t_levels, s_levels = ss.levels(int(max_snp.max()),
+                                   int(tsec_minus.max()), lmax)
+    cnt, key = ss.shard_partials(
+        chrom, slice_start, reverse, qq, valid_w, max_snp, tsec_minus,
+        off=0, w_total=w, w_local=w, lmax=lmax, nl=nl, mpm=mpm,
+        t_levels=t_levels, s_levels=s_levels)
+    merged = ss.merge_partials([cnt], [key], max_snp, tsec_minus)
+    if s_levels >= ss.DEAD:
+        merged = ss.dead_rep_strict(merged, chrom, slice_start, reverse, qq,
+                                    w_total=w, w_local=w, lmax=lmax, mpm=mpm)
+    key_glob = torch.where(merged[3] == ss.BIGKEY, 0, merged[3])
+    full_mm = ss.recount(chrom, slice_start, reverse, qq, qlen, merged[3],
+                         w_total=w, w_local=w, lmax=lmax)
+    emit, min_mm, _lane, _w, full_mm = ss.finish(
+        merged, full_mm, reverse, qlen, max_snp, maxmm, max_allowed,
+        w_total=w, lmax=lmax, mpm=mpm, bp_start=bp_start)
+    return _pack(emit, min_mm, key_glob // w, key_glob % w, full_mm)
 
 
 def unpack_kernel_output(packed: np.ndarray, lmax: int):
@@ -226,9 +274,11 @@ class TorchLaneBackend:
     It searches the chromosome and budget table of a ``DeviceState`` that
     a ``TorchFusedBackend`` already holds, as the JAX engine's legacy
     backend shares the fused backend's chromosome buffer.  Batches above
-    ``MAX_CHUNK`` reads are chunked as in the JAX engine; inside a launch
-    the reads run in row groups of at most ``ROW_ELEMS`` candidates (reads
-    x lanes x window), which bounds the [B, NL, W] int32 scan state.  Rows
+    ``MAX_CHUNK`` reads are chunked as in the JAX engine.  The device's
+    type picks the search: on a card ``_route_kernel`` (the CUDA shard
+    kernel) over the whole batch, on the CPU the plain
+    ``_search_kernel`` in row groups of at most ``ROW_ELEMS`` candidates
+    (reads x lanes x window), which bounds its [B, NL, W] int32 state.  Rows
     are independent, so neither changes a result.
     """
 
@@ -309,11 +359,13 @@ class TorchLaneBackend:
     def _search(self, slice_start, rev, qq, valid_w, qlen, ms, tm,
                 max_allowed, *, w: int, lmax: int, nl: int,
                 bp_start: int) -> np.ndarray:
-        """``_search_kernel`` over a packed batch in row groups; returns
-        the packed [B, 5*lmax + 2] int8 output."""
+        """The device's search over a packed batch; returns the packed
+        [B, 5*lmax + 2] int8 output."""
         dev = self.device
         b = qq.shape[0]
-        step = max(1, self.ROW_ELEMS // (nl * w))
+        on_card = dev.type == "cuda"
+        step = b if on_card else max(1, self.ROW_ELEMS // (nl * w))
+        kernel = _route_kernel if on_card else _search_kernel
         parts = []
         with torch.inference_mode():
             for lo in range(0, b, step):
@@ -323,7 +375,7 @@ class TorchLaneBackend:
                     return torch.from_numpy(
                         np.ascontiguousarray(a[lo:hi])).to(dev)
 
-                parts.append(_search_kernel(
+                parts.append(kernel(
                     self.state.chrom, up(slice_start), up(rev), up(qq),
                     up(valid_w), up(qlen), up(ms), up(tm), self.state.maxmm,
                     up(max_allowed), w=w, lmax=lmax, nl=nl, mpm=self.mpm,

@@ -19,9 +19,13 @@ shards at every step.  Here a shard computes, for its rows and its columns
 A candidate's level is at most its read's ``tsec_minus`` or ``DEAD``, and
 keys are distinct, so one sum and one min over the shards rebuild the JAX
 function's ``min_mm``, ``cnt1``, ``cntp``, ``key_glob`` and
-``rep_strict_bad`` bit for bit (``merge_partials``).  The strict bit of a
+``rep_strict_bad`` bit for bit (``merge_partials``).  The JAX function
+gives a dead candidate the level value ``DEAD`` (127), so with budgets at or
+above it a live candidate at 127 counts with the dead ones; ``levels``
+sizes T and S for that, and the merge adds the two.  The strict bit of a
 ``DEAD`` representative is left out: emission needs ``min_mm <= max_snp``,
-so it is never read.  ``finish`` recounts the representative's whole-read
+so it is read only where ``max_snp`` reaches DEAD, and ``dead_rep_strict``
+recounts it there.  ``finish`` recounts the representative's whole-read
 mismatches (the JAX function's ``full_mm``) and applies the emission
 rules.  ``shard_partials`` runs the CUDA kernel (ops/sharded_search_cuda.py)
 on a card and ``shard_partials_ref`` on the CPU.
@@ -40,6 +44,17 @@ NEVER = -(1 << 20)          # step of the last strict mismatch: none yet
 RECOUNT_ELEMS = 1 << 24     # (row, step, step) elements per recount chunk
 
 _I32 = torch.int32
+
+
+def levels(s_max: int, t_max: int, lmax: int):
+    """T and S of a batch whose largest ``max_snp`` is ``s_max`` and largest
+    ``tsec_minus`` is ``t_max``: no level passes lmax - 1 (a step adds at
+    most one mismatch), and where a live candidate can sit at DEAD's level
+    the keys are kept up to it, since the JAX function counts that
+    candidate with the dead ones."""
+    t = max(min(t_max, lmax - 1), 0)
+    s = max(min(s_max, t), 0)
+    return t, (max(s, DEAD) if t >= DEAD else s)
 
 
 def tile_starts(slice_start, reverse, chrom_len: int, *, off,
@@ -98,8 +113,9 @@ def shard_partials_ref(chrom, slice_start, reverse, qq, valid_w, max_snp,
             strict = ref != qb
             cum += strict ^ (qb == dna.N)     # Matches() semantics for N
             lastmm.masked_fill_(strict, l)
-        lvl = torch.where(seeded & (cum <= tm), cum, DEAD).reshape(b, -1)
-        dead = lvl == DEAD
+        live = seeded & (cum <= tm)
+        lvl = torch.where(live, cum, 0).reshape(b, -1)
+        dead = ~live.reshape(b, -1)
         # the ring of the last mpm strict mismatches is cleared at step 0
         bad = (lastmm.reshape(b, -1) > l - mpm).to(_I32)
         cnt[:, l].scatter_add_(1, torch.where(dead, t_dead, lvl).long(),
@@ -141,19 +157,55 @@ def merge_partials(cnts, keys, max_snp, tsec_minus):
     tm = tsec_minus.to(_I32)[:, None]
     lev = torch.arange(t_levels + 1, dtype=_I32, device=dev)
     alive = cnt[:, :, :t_levels + 1]
-    # the smallest level at or under max_snp that holds a candidate
-    min_mm = torch.where((alive > 0) & (lev <= ms), lev, DEAD).amin(dim=2)
+    dead = cnt[:, :, t_levels + 1]
+    # the smallest level at or under max_snp that holds a candidate; one
+    # above max_snp counts as DEAD (the JAX function's lvl_cap), and every
+    # candidate sits in some slot
+    low = torch.where((alive > 0) & (lev <= ms), lev, BIGKEY).amin(dim=2)
+    capped = (dead > 0) | ((alive > 0) & (lev > ms)).any(dim=2)
+    min_mm = torch.where(capped, low.clamp(max=DEAD), low)
     is_dead = min_mm == DEAD
-    cnt1 = torch.gather(cnt, 2, torch.where(is_dead, t_levels + 1, min_mm)
-                        .long()[..., None])[..., 0]
+    # at DEAD's level the dead candidates count with a live one there
+    live_at = torch.gather(alive, 2, min_mm.clamp(max=t_levels)
+                           .long()[..., None])[..., 0]
+    cnt1 = (torch.where(min_mm <= t_levels, live_at, 0)
+            + torch.where(is_dead, dead, 0))
     hi = torch.minimum(min_mm + (tm - max_snp.to(_I32)[:, None]), tm)
-    cntp = (alive * (lev <= hi[..., None])).sum(dim=2, dtype=_I32)
-    enc = torch.gather(key, 2, torch.where(is_dead, s_levels + 1, min_mm)
+    cntp = ((alive * (lev <= hi[..., None])).sum(dim=2, dtype=_I32)
+            + torch.where(hi >= DEAD, dead, 0))
+    enc = torch.gather(key, 2, min_mm.clamp(max=s_levels)
                        .long()[..., None])[..., 0]
+    enc = torch.where(min_mm <= s_levels, enc, NO_KEY)
+    enc = torch.where(is_dead, torch.minimum(enc, key[:, :, s_levels + 1]),
+                      enc)
     none = enc == NO_KEY
     key_glob = torch.where(none, BIGKEY, enc >> 1)
     rep_strict_bad = ~none & ((enc & 1) == 1)
     return min_mm, cnt1, cntp, key_glob, rep_strict_bad
+
+
+def _rep_steps(chrom, slice_start, reverse, qq, key_glob, *, w_total: int,
+               w_local: int, lmax: int):
+    """For the candidate each ``key_glob`` [R, lmax] names (candidate 0 for
+    ``BIGKEY``), read from the tile of the shard that owns its column: its
+    tile's codes and its query's at steps 1..lmax-1, [R, lmax, lmax - 1]
+    int8 each."""
+    s = torch.arange(1, lmax, dtype=_I32, device=chrom.device)
+    k = torch.where(key_glob != BIGKEY, key_glob, 0)
+    lane = (k // w_total).long()
+    col = k % w_total
+    shard = col // w_local
+    u = col - shard * w_local
+    rev = torch.gather(reverse, 1, lane)
+    start = tile_starts(torch.gather(slice_start, 1, lane), rev,
+                        chrom.shape[0], off=shard * w_local,
+                        w_total=w_total, w_local=w_local, lmax=lmax)
+    t = u[..., None] + s                                   # tile index
+    pos = torch.where(rev[..., None],
+                      start[..., None] + (w_local + lmax - 1) - t,
+                      start[..., None] + t)
+    q = torch.gather(qq, 1, lane[..., None].expand(-1, -1, lmax))[..., 1:]
+    return chrom[pos.long()], q
 
 
 def recount(chrom, slice_start, reverse, qq, qlen, key_glob, *, w_total: int,
@@ -169,30 +221,40 @@ def recount(chrom, slice_start, reverse, qq, qlen, key_glob, *, w_total: int,
     s = torch.arange(1, lmax, dtype=_I32, device=dev)
     for lo in range(0, b, rows):
         hi = min(lo + rows, b)
-        kg = key_glob[lo:hi]
-        found = kg != BIGKEY
-        k = torch.where(found, kg, 0)
-        lane = (k // w_total).long()
-        col = k % w_total
-        shard = col // w_local
-        u = col - shard * w_local
-        rev = torch.gather(reverse[lo:hi], 1, lane)
-        start = tile_starts(torch.gather(slice_start[lo:hi], 1, lane), rev,
-                            chrom.shape[0], off=shard * w_local,
-                            w_total=w_total, w_local=w_local, lmax=lmax)
-        t = u[..., None] + s                               # tile index
-        pos = torch.where(rev[..., None],
-                          start[..., None] + (w_local + lmax - 1) - t,
-                          start[..., None] + t)
-        ref = chrom[pos.long()]
-        q = torch.gather(qq[lo:hi], 1,
-                         lane[..., None].expand(-1, -1, lmax))[..., 1:]
+        ref, q = _rep_steps(chrom, slice_start[lo:hi], reverse[lo:hi],
+                            qq[lo:hi], key_glob[lo:hi], w_total=w_total,
+                            w_local=w_local, lmax=lmax)
         mm = (ref != q) ^ (q == dna.N)
         n = qlen[lo:hi].to(_I32)[:, None, None]
         counted = (s <= n - 1) & (n - 1 < lmax)
-        full[lo:hi] = torch.where(found, (mm & counted).sum(
-            dim=2, dtype=_I32), 0)
+        full[lo:hi] = torch.where(key_glob[lo:hi] != BIGKEY, (mm & counted)
+                                  .sum(dim=2, dtype=_I32), 0)
     return full
+
+
+def dead_rep_strict(merged, chrom, slice_start, reverse, qq, *,
+                    w_total: int, w_local: int, lmax: int, mpm: int):
+    """``merged`` with the strict bit of each representative at DEAD's
+    level recounted: a strict mismatch at one of its steps (l - mpm, l], l
+    >= 1, as the JAX function's ring holds them.  The partials keep no
+    strict bit for dead candidates, and it is read only where ``max_snp``
+    reaches DEAD."""
+    min_mm, cnt1, cntp, key_glob, strict_bad = merged
+    b = key_glob.shape[0]
+    out = strict_bad.clone()
+    rows = max(1, RECOUNT_ELEMS // (lmax * lmax))
+    lidx = torch.arange(lmax, dtype=_I32, device=chrom.device)[:, None]
+    s = lidx[1:, 0]
+    ring = (s <= lidx) & (s > lidx - mpm)                 # [lmax, lmax - 1]
+    for lo in range(0, b, rows):
+        hi = min(lo + rows, b)
+        ref, q = _rep_steps(chrom, slice_start[lo:hi], reverse[lo:hi],
+                            qq[lo:hi], key_glob[lo:hi], w_total=w_total,
+                            w_local=w_local, lmax=lmax)
+        bad = ((ref != q) & ring).any(dim=2)
+        at_dead = (min_mm[lo:hi] == DEAD) & (key_glob[lo:hi] != BIGKEY)
+        out[lo:hi] = torch.where(at_dead, bad, out[lo:hi])
+    return min_mm, cnt1, cntp, key_glob, out
 
 
 def finish(merged, full_mm, reverse, qlen, max_snp, maxmm, max_allowed, *,

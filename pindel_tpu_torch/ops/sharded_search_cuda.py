@@ -6,9 +6,10 @@ with a plain C entry point, under ``pindel_tpu_torch/build/``, at first use
 (or when the source is newer), and loaded with ctypes.
 ``shard_partials_cuda`` has the signature and output contract of
 ``ops/sharded_search.py:shard_partials_ref``; it checks its inputs,
-allocates the outputs, launches on PyTorch's current stream of the inputs'
-card and counts its launches in ``LAUNCHES`` (and per card index in
-``LAUNCHES_BY_DEVICE``).
+allocates the outputs, chooses how many blocks share a row
+(``row_splits``) and whether a block's histograms fit in shared memory,
+launches on PyTorch's current stream of the inputs' card and counts its
+launches in ``LAUNCHES`` (and per card index in ``LAUNCHES_BY_DEVICE``).
 """
 from __future__ import annotations
 
@@ -25,6 +26,13 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "csrc", "sharded_search.cu")
 LIBRARY = os.path.join(_PKG, "build", "libpt_sharded.so")
 MAX_SMEM = 227 * 1024       # dynamic shared memory a block may take (H100)
+# a call of fewer rows splits each row's columns over several blocks, so
+# that it launches at least FILL_BLOCKS blocks (eight 256-thread blocks on
+# each of the H100's 132 SMs, twice over), each with at least MIN_COLS
+# columns of every lane (two passes of its 256 threads, 4 columns each;
+# split blocks cost a fill and a last pass besides)
+FILL_BLOCKS = 2 * 8 * 132
+MIN_COLS = 2048
 
 LAUNCHES = 0        # kernel launches since import (or the last reset)
 LAUNCHES_BY_DEVICE = collections.Counter()   # the same, per card index
@@ -46,12 +54,45 @@ def _lib() -> ctypes.CDLL:
             lib = ctypes.CDLL(LIBRARY)
             lib.pt_shard_partials.argtypes = (
                 [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 7
-                + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+                + [ctypes.c_int] * 11 + [ctypes.c_void_p])
             lib.pt_shard_partials.restype = ctypes.c_int
-            lib.pt_shard_smem.argtypes = [ctypes.c_int] * 4
+            lib.pt_shard_smem.argtypes = [ctypes.c_int] * 3
             lib.pt_shard_smem.restype = ctypes.c_size_t
             _LIB = lib
         return _LIB
+
+
+def check_shape(chrom_len: int, *, nl: int, w_total: int, w_local: int,
+                lmax: int, t_levels: int, s_levels: int) -> None:
+    """Raise ValueError for a call the kernel does not take: lmax not a
+    multiple of 4, a tile longer than the chromosome, positions past int32,
+    negative levels, or keys (lane * w_total + column) reaching 2^30.
+    Levels are int32 and take any budget; shared memory sets no limit:
+    histograms that do not fit go to device memory."""
+    if lmax % 4:
+        raise ValueError(f"lmax {lmax} is not a multiple of 4 (the kernel "
+                         "reads the queries a word at a time)")
+    if chrom_len < w_local + lmax:
+        raise ValueError(f"chromosome of {chrom_len} codes is shorter "
+                         f"than a tile of {w_local + lmax}")
+    if chrom_len >= 1 << 31:
+        raise ValueError(f"chromosome of {chrom_len} codes: positions "
+                         "past int32")
+    if t_levels < 0 or s_levels < 0:
+        raise ValueError(f"levels T={t_levels} S={s_levels} below 0")
+    if nl * w_total >= 1 << 30:
+        raise ValueError(f"keys of {nl} lanes x {w_total} columns reach "
+                         "2^30")
+
+
+def row_splits(rows: int, w_local: int) -> int:
+    """Blocks per row: the least power of two that brings the launch to
+    FILL_BLOCKS blocks, at most one per MIN_COLS columns."""
+    splits = 1
+    while (rows * splits < FILL_BLOCKS
+           and w_local // (2 * splits) >= MIN_COLS):
+        splits *= 2
+    return splits
 
 
 def shard_partials_cuda(chrom, slice_start, reverse, qq, valid_w, max_snp,
@@ -73,21 +114,16 @@ def shard_partials_cuda(chrom, slice_start, reverse, qq, valid_w, max_snp,
     check_tensor("valid_w", valid_w, torch.int32, (b, nl), device)
     check_tensor("max_snp", max_snp, torch.int32, (b,), device)
     check_tensor("tsec_minus", tsec_minus, torch.int32, (b,), device)
-    if chrom.shape[0] < w_local + lmax:
-        raise ValueError(f"chromosome of {chrom.shape[0]} codes is shorter "
-                         f"than a tile of {w_local + lmax}")
-    if not 0 <= t_levels < 127 or not 0 <= s_levels < 127:
-        raise ValueError(f"levels T={t_levels} S={s_levels} outside "
-                         "[0, DEAD)")
-    if nl * w_total >= 1 << 30:
-        raise ValueError(f"keys of {nl} lanes x {w_total} columns reach "
-                         "2^30")
+    check_shape(chrom.shape[0], nl=nl, w_total=w_total, w_local=w_local,
+                lmax=lmax, t_levels=t_levels, s_levels=s_levels)
+    # the kernel reads chrom and qq a 4-byte word at a time
+    for name, t in (("chrom", chrom), ("qq", qq)):
+        if t.data_ptr() % 4:
+            raise ValueError(f"{name} does not start on a 4-byte boundary")
     lib = _lib()
-    smem = lib.pt_shard_smem(lmax, nl, t_levels, s_levels)
-    if smem > MAX_SMEM:
-        raise ValueError(f"shard kernel needs {smem} bytes of shared "
-                         f"memory at lmax={lmax} nl={nl} T={t_levels} "
-                         f"S={s_levels}, above {MAX_SMEM}")
+    # a block keeps its histograms in shared memory where they fit, else
+    # it adds into the output in device memory
+    use_smem = lib.pt_shard_smem(lmax, t_levels, s_levels) <= MAX_SMEM
     cnt = torch.empty((b, lmax, t_levels + 2), dtype=torch.int32,
                       device=device)
     key = torch.empty((b, lmax, s_levels + 2), dtype=torch.int32,
@@ -101,7 +137,7 @@ def shard_partials_cuda(chrom, slice_start, reverse, qq, valid_w, max_snp,
             reverse.data_ptr(), qq.data_ptr(), valid_w.data_ptr(),
             tsec_minus.data_ptr(), cnt.data_ptr(), key.data_ptr(),
             b, nl, w_total, w_local, off, lmax, mpm, t_levels, s_levels,
-            stream)
+            row_splits(b, w_local), int(use_smem), stream)
     if err != 0:
         raise RuntimeError(f"pt_shard_partials launch failed: CUDA error "
                            f"{err} (rows={b} nl={nl} w_local={w_local} "
