@@ -23,7 +23,9 @@ Phases, in order; any failure exits non-zero:
    1 lanes, seeds at the window's edges and at WE - 1, all-seeded rows at
    w = 1536 and 32768, many seeds with valid_w > w and with qlen above the
    dead level (lmax 1024), and the widest bucket (98304) with both branches
-   in one call;
+   in one call; then the bucket sweep of tests/test_pallas_onchip.py (every
+   window bucket of W_BUCKETS by every lmax of BUCKET_LMAXES, 192 rows,
+   testing/scan_cases.py:bucket_case), 18 cases;
 3b. the legacy per-lane backend (K8, ops/engine_jax.py), which on a card
    runs its route through the shard kernel (``_route_kernel``): the
    route's packed buffer against the plain ``_search_kernel`` on the card,
@@ -115,7 +117,15 @@ Phases, in order; any failure exits non-zero:
    digests), the shard kernel launched, the plain ``_search_kernel`` never
    run on the card (``engine_jax.PLAIN_ON_CARD``), with the wall, the
    legacy rows and the launches; the largest shard call of each scene is
-   held against the twin and timed beside the parent's kernel.
+   held against the twin and timed beside the parent's kernel;
+11. the port's measurement tools, each in a fresh interpreter:
+   ``python -m pindel_tpu_torch.bench``, ``pindel_tpu_torch.tools.
+   kernel_bench``, ``profile_bench --scene 1 --runs 2`` and
+   ``multihost_bench --hosts 2``: each exits 0 with ``"correct": true``,
+   its rates and times positive, the device-busy share in (0, 1], the
+   bench's and the profile's scan launches equal to phases 5 and 6, and
+   each tool's build and first-use times logged; each tool's JSON line is
+   printed on a line of its own.
 
 The script imports torch, numpy and pindel_tpu_torch, and no jax.
 ``--profile-dir`` also traces one run of each full-size scene with
@@ -138,6 +148,10 @@ import time
 import numpy as np
 import torch
 
+from pindel_tpu_torch.tools.measure import (PEAK_BYTES, PEAK_INT32_OPS,
+                                            card_line, row_classes,
+                                            scan_bound)
+
 REPO = os.path.dirname(os.path.abspath(__file__))
 # the commit whose shard kernel (csrc/sharded_search.cu) the redesign
 # replaced, timed beside it where its source is at hand
@@ -145,27 +159,6 @@ PARENT_REV = "6efbcdb"
 PARENT_SOURCE = "pindel_tpu_torch/csrc/sharded_search.cu"
 MAX_FALLBACK = 0.01
 TIMED_RUNS = 3
-# the H100 SXM's published peaks (NVIDIA's H100 datasheet): HBM bytes/s,
-# and the int32 rate, from the float32 rate outside the tensor cores (67e12,
-# an FMA counted as two operations, 128 float32 lanes per SM and clock):
-# an SM issues 64 int32 operations per clock, so a quarter of it
-PEAK_BYTES = 3.35e12
-PEAK_INT32_OPS = 67e12 / 4
-# int32 operations per candidate of the scan, as the kernel (csrc/scan.cu)
-# does the work.  Pass 1, over the read's counted steps: 7 per word of four
-# steps (funnel shift, a lop3 for the xor and mask, the add that flags the
-# nonzero bytes, two lop3 for the or and the row's masks, popc, the add to
-# the total).  Pass 2, over lsteps: 8 per step, the step's work as the plain
-# version states it (mismatch test, N flip, level add, last-mismatch
-# update, strict-bad test, key, min and second-min fold), fewer than the
-# kernel issues (about 9 per step and 5 per word).  The bound counts them
-# over the candidates a row needs: its seeded lanes when the sparse branch
-# takes it (two or more seeds; ops/scan.py:sparse_rows), every lane of
-# [0, WE) otherwise.  The earlier count took every row's valid_w lanes, at
-# 3 operations per step of pass 1
-PASS1_OPS_PER_WORD = 7
-PASS2_OPS = 8
-EARLIER_PASS1_OPS = 3
 # phase 7: the device lists of the mesh runs (None: every visible card)
 MESH_LISTS = {"all": None, "cuda0x2": ["cuda:0", "cuda:0"]}
 # phase 8c: (label, scene, extra flags, --dist, the --hosts values in turn)
@@ -202,6 +195,15 @@ SHARD_PLAIN_ROWS = 512      # rows per call of the plain twin at full width
 # what each path of the kernels line gives of its scan calls
 SCAN_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "bound_dense_ms")
+# phase 11: (name, module, arguments) of each tool, and each one's time
+# limit in seconds
+TOOLS = [("bench", "pindel_tpu_torch.bench", []),
+         ("kernel_bench", "pindel_tpu_torch.tools.kernel_bench", []),
+         ("profile_bench", "pindel_tpu_torch.tools.profile_bench",
+          ["--scene", "1", "--runs", "2"]),
+         ("multihost_bench", "pindel_tpu_torch.tools.multihost_bench",
+          ["--hosts", "2"])]
+TOOL_TIMEOUT_S = 300
 
 
 def reference_modules():
@@ -217,13 +219,6 @@ def fail(msg: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def card_line() -> str:
-    res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True)
-    return res.stdout.strip().splitlines()[0]
 
 
 def host_line() -> str:
@@ -331,42 +326,6 @@ def compare(args, kw, kernel, plain) -> int:
     for g, r in zip(got, want):
         err = max(err, int((g.long() - r.long()).abs().max().item()))
     return err
-
-
-def row_classes(args, kw):
-    """Seeds per row and the rows the kernel walks on its sparse branch
-    (two or more seeds; ops/scan.py:sparse_rows)."""
-    from pindel_tpu_torch.ops.scan import seed_counts, sparse_rows
-    tiles, qq, valid_w, qlen, _thr, off = args
-    seeds = seed_counts(tiles, qq, valid_w, off, lmax=kw["lmax"])
-    return seeds, sparse_rows(seeds, valid_w, qlen, w=kw["w"],
-                              lmax=kw["lmax"], lsteps=kw["lsteps"])
-
-
-def scan_bound(args, kw, seeds, sparse):
-    """The least time the card could take for one scan call, from its
-    inputs: the int32 operations its rows need (pass 1 over the read's
-    steps, pass 2 over ``lsteps``, on the seeded lanes of a sparse row and
-    on every lane of [0, WE) of the others) at PEAK_INT32_OPS, or each input
-    byte read and each output byte written once at PEAK_BYTES, whichever is
-    longer.  Returns (ms, "operations" or "bytes", and the earlier
-    valid-lane count, which takes every row's ``valid_w`` lanes as
-    candidates at EARLIER_PASS1_OPS per step of pass 1, in ms)."""
-    tiles, qq, valid_w, qlen, thr = args[:5]
-    lsteps = kw["lsteps"] or kw["lmax"]
-    we = tiles.shape[1] - kw["lmax"]
-    steps1 = (torch.clamp(qlen.double(), max=lsteps) - 1).clamp(min=0)
-    per_lane = steps1 * PASS1_OPS_PER_WORD / 4 + lsteps * PASS2_OPS
-    lanes = torch.where(sparse, seeds, we)
-    ops = float((lanes * per_lane).sum())
-    earlier = steps1 * EARLIER_PASS1_OPS + lsteps * PASS2_OPS
-    dense_ops = float((valid_w.double() * earlier).sum())
-    nbytes = (sum(a.numel() * a.element_size() for a in args)
-              + 2 * tiles.shape[0] * kw["lmax"] * 4)
-    t_ops, t_bytes = ops / PEAK_INT32_OPS, nbytes / PEAK_BYTES
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes",
-            max(dense_ops / PEAK_INT32_OPS, t_bytes) * 1e3)
 
 
 def legacy_bound(chrom, lanes, w: int, lmax: int):
@@ -606,6 +565,84 @@ def run_cli(port_main, argv) -> float:
     return wall
 
 
+def run_tool(name: str, module: str, argv, card: str) -> dict:
+    """``python -m module argv`` in a fresh interpreter from the checkout;
+    fails unless it exits 0 within TOOL_TIMEOUT_S and prints a JSON line
+    last.  Prints that line on a line of its own; returns it."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [REPO] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                  if p])
+    t0 = time.monotonic()
+    res = subprocess.run([sys.executable, "-m", module, *argv], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=TOOL_TIMEOUT_S)
+    wall = time.monotonic() - t0
+    if res.returncode != 0:
+        sys.stderr.write(res.stderr[-6000:])
+        fail(f"{name} ({module} {' '.join(argv)}) exited "
+             f"{res.returncode}")
+    line = json.loads(res.stdout.strip().splitlines()[-1])
+    log(f"{name}: {module} {' '.join(argv)} exited 0 in {wall:.1f} s; "
+        f"kernel and library builds {line['build_s']:.3f} s, first use "
+        f"{line['first_use_s']}  [{card}]")
+    log(json.dumps(line))
+    if line.get("correct") is not True:
+        fail(f"{name}: correct is {line.get('correct')}")
+    if line.get("device") != card:
+        fail(f"{name}: device {line.get('device')!r}, not {card!r}")
+    return line
+
+
+def check_tools(tools, launches1: int, launches2: int) -> None:
+    """Phase 11's checks of the tools' lines: rates and times positive,
+    the busy share in (0, 1], scan launches equal to phases 5 and 6."""
+    b = tools["bench"]
+    times = b["runs"] + b["scene2_runs"]
+    if not (b["value"] > 0 and b["scene2_value"] > 0
+            and all(t > 0 for t in times)):
+        fail(f"bench: rates {b['value']}, {b['scene2_value']}, walls {times}")
+    if b["launches"] != {"scene1": launches1, "scene2": launches2}:
+        fail(f"bench: scan launches {b['launches']}, phases 5 and 6 "
+             f"{launches1} and {launches2}")
+    for call, c in tools["kernel_bench"]["calls"].items():
+        if not (c["ms"] > 0 and c["k1_ms"] > 0 and c["bound_ms"] > 0
+                and c["launches"] == c["k1_calls"] > 0):
+            fail(f"kernel_bench {call}: {c}")
+    p = tools["profile_bench"]
+    if not (p["busy_share"] is not None and 0 < p["busy_share"] <= 1
+            and p["device_s"] > 0 and all(t > 0 for t in p["runs"])):
+        fail(f"profile_bench: busy share {p['busy_share']}, device "
+             f"{p['device_s']} s, walls {p['runs']}")
+    if p["launches"] != launches1:
+        fail(f"profile_bench: scan launches {p['launches']}, phase 5 "
+             f"{launches1}")
+    m = tools["multihost_bench"]
+    workers = m["ranks"][1:]
+    if not (m["t1"] > 0 and m["tN"] > 0 and m["speedup"] > 0 and workers
+            and all(r["spawn_to_ready_s"] > 0 for r in workers)):
+        fail(f"multihost_bench: {m}")
+    log(f"phase 11: bench {b['value']:.1f} reads/s (scene 1), "
+        f"{b['scene2_value']:.1f} read pairs/s (scene 2), scan launches "
+        f"{b['launches']} equal to phases 5 and 6; profile busy share "
+        f"{p['busy_share']:.4%}; --hosts {m['hosts']} speedup "
+        f"{m['speedup']:.3f}")
+
+
+def tool_summary(tools) -> dict:
+    """What the kernels line keeps of the tools' lines."""
+    b = tools["bench"]
+    return dict(
+        bench=dict(launches=b["launches"], value=b["value"],
+                   scene2_value=b["scene2_value"]),
+        kernel_bench={k: {x: c[x] for x in ("ms", "k1_ms", "bound_ms",
+                                            "launches")}
+                      for k, c in tools["kernel_bench"]["calls"].items()},
+        profile_bench=dict(busy_share=tools["profile_bench"]["busy_share"],
+                           launches=tools["profile_bench"]["launches"]),
+        multihost_bench=dict(speedup=tools["multihost_bench"]["speedup"]))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile-dir", default=None,
@@ -627,14 +664,17 @@ def main() -> int:
     from pindel_tpu_torch.ops.scan import scan_rows_ref
     from pindel_tpu_torch.testing.lane_cases import (dead_level_case,
                                                      lane_case)
-    from pindel_tpu_torch.testing.scan_cases import KINDS, branch_case
+    from pindel_tpu_torch.testing.scan_cases import (BUCKET_LMAXES,
+                                                     BUCKET_ROWS, KINDS,
+                                                     W_BUCKETS, branch_case,
+                                                     bucket_case)
     from pindel_tpu_torch.pipeline import g_fallback, g_timer, run_files
     from pindel_tpu_torch.testing.scenes import (BAM_SCENES, SCENE1,
                                                  SCENE1_FLAGS, SCENE2,
                                                  SMALL_SCENES, bam_argv,
                                                  digests, legacy_anchors,
+                                                 SCENE2_DIGESTS, load_digests,
                                                  load_golden,
-                                                 load_scene2_digests,
                                                  reports, sharded_anchors,
                                                  two_region_lanes,
                                                  write_scene)
@@ -717,6 +757,20 @@ def main() -> int:
         if err:
             fail(f"kernel disagrees with its plain version on {label} "
                  f"(max {err})")
+    # the bucket sweep of tests/test_pallas_onchip.py
+    for w in W_BUCKETS:
+        for lmax in BUCKET_LMAXES:
+            case = [torch.from_numpy(a).to(dev) for a in bucket_case(w, lmax)]
+            kw = dict(w=w, lmax=lmax, mpm=3, lsteps=min(112, lmax))
+            err = compare(case, kw, scan_cuda.scan_rows_cuda, scan_rows_ref)
+            log(f"kernel vs plain, bucket sweep: w={w} lmax={lmax} rows="
+                f"{BUCKET_ROWS} lsteps={kw['lsteps']} max_abs_err={err}")
+            max_err = max(max_err, err)
+            if err:
+                fail(f"kernel disagrees with its plain version on the bucket "
+                     f"sweep's case w={w} lmax={lmax} (max {err})")
+    log(f"bucket sweep: {len(W_BUCKETS) * len(BUCKET_LMAXES)} cases, "
+        "max_abs_err=0")
 
     # ---- 3b. legacy per-lane backend (K8): the route on the card
     from pindel_tpu_torch.config import Settings
@@ -1214,7 +1268,7 @@ def main() -> int:
         n2 = int(paths2["pairs"])
         log(f"scene 2: {n2} read pairs over 2000000 bp (BAM + BreakDancer "
             f"calls), built in {time.monotonic() - t0:.1f} s")
-        want_digests = load_scene2_digests()
+        want_digests = load_digests(SCENE2_DIGESTS)
 
         def scene2_reports(want):
             if digests(want) != want_digests:
@@ -1939,6 +1993,12 @@ def main() -> int:
             del args, want, out
             torch.cuda.empty_cache()
 
+    # ---- 11. the measurement tools, each in a fresh interpreter
+    torch.cuda.empty_cache()
+    tools = {name: run_tool(name, module, argv, card)
+               for name, module, argv in TOOLS}
+    check_tools(tools, scene1["launches"], scene2["launches"])
+
     loaded = reference_modules()
     if loaded:
         fail(f"a run loaded {loaded}")
@@ -1960,7 +2020,8 @@ def main() -> int:
                     bound_ms=scene1["bound_ms"],
                     bound_by=scene1["bound_by"],
                     bound_dense_ms=scene1["bound_dense_ms"], library_ms=None,
-                    paths=paths, whole_calls=whole)]
+                    paths=paths, whole_calls=whole,
+                    tools=tool_summary(tools))]
     # K9 at its largest shape (the full batch at wp = 1), which is also
     # K8's largest batch through the route; launches over the route's full
     # batch (3b), the K9 backend runs (9b), the timed full-width runs (9c),

@@ -1,6 +1,7 @@
 """Scan inputs that drive each branch of the CUDA scan kernel, shared by
 tests/test_torch_scan.py (on the CPU, against the JAX package) and
-chip_smoke.py (on the card, against the plain version).
+chip_smoke.py (on the card, against the plain version), and the inputs of
+the bucket sweep (``bucket_case``).
 
 The kernel walks only the seeded lanes of a row with two or more seeds and
 every lane of the other rows, and a row of many seeds also walks every lane
@@ -120,3 +121,26 @@ def branch_case(seed: int, w: int, lmax: int, kinds):
             n = min(int(qlen[i]), t - s)
             qq[i, :n] = tiles[i, s:s + n]
     return [tiles, qq, valid_w, qlen, thr, off]
+
+
+# the bucket sweep (tests/test_pallas_onchip.py, run by chip_smoke.py on the
+# card): every window bucket the fused engine can choose (``_w_bucket``:
+# 128 * 2^k with 3 * 2^(k-1) between) up to 2048, by both read-length
+# buckets, at a row count that is a multiple of no tile
+W_BUCKETS = (128, 192, 256, 384, 512, 768, 1024, 1536, 2048)
+BUCKET_LMAXES = (128, 256)
+BUCKET_ROWS = 192
+
+
+def bucket_case(w: int, lmax: int):
+    """Numpy inputs (tiles, qq, valid_w, qlen, thr) of the sweep's case
+    (w, lmax): tiles exactly w + lmax wide, drawn as the sweep draws them
+    (seed w * 1000 + lmax); run with ``lsteps = min(112, lmax)``."""
+    rng = np.random.default_rng(w * 1000 + lmax)
+    r = BUCKET_ROWS
+    tiles = rng.integers(0, 5, size=(r, w + lmax), dtype=np.int8)
+    qq = rng.integers(0, 5, size=(r, lmax), dtype=np.int8)
+    qlen = rng.integers(20, lmax + 1, size=r).astype(np.int32)
+    valid_w = rng.integers(0, w + 1, size=r).astype(np.int32)
+    thr = rng.integers(0, 12, size=r).astype(np.int32)
+    return tiles, qq, valid_w, qlen, thr

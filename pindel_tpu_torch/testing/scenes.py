@@ -9,10 +9,12 @@ writes with the scene's flags: the GPU machine has no jax, so the port's
 reports are compared there with these bytes.  tests/test_torch_pipeline.py
 and tests/test_torch_bam.py keep them equal to the JAX package's output;
 ``PYTHONPATH=. python tests/test_torch_pipeline.py --write-golden`` rewrites
-them.  ``SCENE1`` and ``SCENE2`` are scenes 1 and 2 of bench.py; scene 2's
-reference reports are too large for the JSON, so ``scene2_digests.json``
-holds their sha256 (rewritten by ``PYTHONPATH=. python
-tests/test_torch_bam.py --write-scene2-digests``).
+them.  ``SCENE1`` and ``SCENE2`` are scenes 1 and 2 of bench.py; their
+reference reports are too large for the JSON, so ``scene1_digests.json``
+and ``scene2_digests.json`` hold their sha256 (rewritten by
+``PYTHONPATH=. python tests/test_torch_bench.py --write-scene1-digests``
+and ``PYTHONPATH=. python tests/test_torch_bam.py
+--write-scene2-digests``).
 """
 from __future__ import annotations
 
@@ -35,6 +37,7 @@ from pindel_tpu_torch.testing.simulate import (Event, SimReads, Simulator,
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(_HERE, "golden_reports.json")
+SCENE1_DIGESTS = os.path.join(_HERE, "scene1_digests.json")
 SCENE2_DIGESTS = os.path.join(_HERE, "scene2_digests.json")
 
 # name -> (standard_scene arguments, CLI flags besides -s, the same flags as
@@ -149,10 +152,11 @@ def _bigdel_reads(d: str) -> Tuple[str, str]:
 def build_bigdel(d: str) -> Dict[str, str]:
     """tests/test_breakdancer.py's scene as a BAM, with the BreakDancer
     calls file naming both deletions (the 6 kb one is findable only
-    through the calls' windows) and an SV list for -g."""
+    through the calls' windows) and an SV list for -g; ``pairs`` is the
+    number of read pairs."""
     ref, txt = _bigdel_reads(d)
     bam = os.path.join(d, "reads.bam")
-    text_to_bam(ref, "chrT", txt, bam)
+    pairs = text_to_bam(ref, "chrT", txt, bam)
     bd = os.path.join(d, "calls.bd")
     with open(bd, "w") as fh:
         fh.write("#header line\n")
@@ -164,7 +168,7 @@ def build_bigdel(d: str) -> Dict[str, str]:
         fh.write("DEL chrT 20000 50 chrT 26000 50\n"
                  "DEL chrT 40000 50 chrT 40100 50\n")
     return dict(fa=_write_ref(d, "chrT", ref), cfg=_write_cfg(d, bam),
-                bd=bd, svs=svs)
+                bd=bd, svs=svs, pairs=str(pairs))
 
 
 def build_rp_bigdel(d: str) -> Dict[str, str]:
@@ -431,13 +435,15 @@ def digests(files: Dict[str, bytes]) -> Dict[str, str]:
             for suffix, raw in sorted(files.items())}
 
 
-def load_scene2_digests() -> Dict[str, str]:
-    with open(SCENE2_DIGESTS) as fh:
+def load_digests(path: str) -> Dict[str, str]:
+    """The reference's report digests in ``path`` (``SCENE1_DIGESTS``,
+    ``SCENE2_DIGESTS``), by suffix."""
+    with open(path) as fh:
         return json.load(fh)["reports"]
 
 
-def save_scene2_digests(files: Dict[str, bytes], command: str) -> None:
-    with open(SCENE2_DIGESTS, "w") as fh:
+def save_digests(path: str, files: Dict[str, bytes], command: str) -> None:
+    with open(path, "w") as fh:
         json.dump(dict(command=command, reports=digests(files)), fh,
                   indent=1)
         fh.write("\n")

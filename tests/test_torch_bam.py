@@ -28,7 +28,7 @@ from pindel_tpu_torch.profiling import g_fallback  # noqa: E402
 from pindel_tpu_torch.testing import scenes  # noqa: E402
 from pindel_tpu_torch.testing.scenes import (BAM_SCENES, SCENE2,  # noqa: E402
                                              bam_argv, load_golden,
-                                             load_scene2_digests, reports)
+                                             load_digests, reports)
 
 # one intra-op thread: the test workers share the machine's cores, and
 # torch's per-op thread pool oversubscribes them (the scan is many small ops)
@@ -200,7 +200,7 @@ def scene2_reports(d: str):
 def test_scene2_reference_digests(tmp_path):
     """The committed digests are those of the reference's reports."""
     assert scenes.digests(scene2_reports(str(tmp_path))) == \
-        load_scene2_digests()
+        load_digests(scenes.SCENE2_DIGESTS)
 
 
 if __name__ == "__main__":
@@ -209,4 +209,5 @@ if __name__ == "__main__":
     import tempfile
     sys.path.insert(0, os.path.join(REPO, "tests"))
     with tempfile.TemporaryDirectory() as d:
-        scenes.save_scene2_digests(scene2_reports(d), SCENE2_COMMAND)
+        scenes.save_digests(scenes.SCENE2_DIGESTS, scene2_reports(d),
+                            SCENE2_COMMAND)
