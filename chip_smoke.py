@@ -119,13 +119,31 @@ Phases, in order; any failure exits non-zero:
    legacy rows and the launches; the largest shard call of each scene is
    held against the twin and timed beside the parent's kernel;
 11. the port's measurement tools, each in a fresh interpreter:
-   ``python -m pindel_tpu_torch.bench``, ``pindel_tpu_torch.tools.
+   ``python -m pindel_tpu_torch.bench --runs 2`` (two timed runs a scene,
+   not five: phases 5, 6 and 12 run its scenes too), ``pindel_tpu_torch.tools.
    kernel_bench``, ``profile_bench --scene 1 --runs 2`` and
    ``multihost_bench --hosts 2``: each exits 0 with ``"correct": true``,
    its rates and times positive, the device-busy share in (0, 1], the
    bench's and the profile's scan launches equal to phases 5 and 6, and
    each tool's build and first-use times logged; each tool's JSON line is
-   printed on a line of its own.
+   printed on a line of its own.  The bench also runs scene 3 (its
+   ``scene3_*`` keys: a positive rate, three windows, fallback at most
+   1%), and ``profile_bench --scene 3 --runs 1`` traces one run of it
+   (the busy share at that size); both tools' scene-3 launches must equal
+   phase 12's;
+12. scene 3 (testing/scenes.py:build_scene3: about 90,750 BAM read pairs
+   with BreakDancer calls over 15 Mb, three 5 Mb windows, in the shape of
+   the reference pindel's colousingbd15 run) once through the CLI on the
+   card: every scan call of the run recorded and held against the plain
+   version (max_abs_err 0), each shape timed; the reports equal to the
+   reference's digests (testing/scene3_digests.json); the bench's gate
+   (``pindel_tpu_torch.bench.problems``: digests, a non-empty ``_D``,
+   fallback at most 1%, three windows, the scan kernel launched and
+   ``_far_win_kernel`` rows above 0); the windows, K4 rows, legacy rows,
+   shard kernel launches, scan launches and peak card memory printed,
+   with each window's reads and times; then ``_close_kernel``,
+   ``_far_kernel`` and ``_far_win_kernel`` whole at scene 3's largest
+   chunk of each, as in 6b.
 
 The script imports torch, numpy and pindel_tpu_torch, and no jax.
 ``--profile-dir`` also traces one run of each full-size scene with
@@ -196,11 +214,14 @@ SHARD_PLAIN_ROWS = 512      # rows per call of the plain twin at full width
 SCAN_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "bound_dense_ms")
 # phase 11: (name, module, arguments) of each tool, and each one's time
-# limit in seconds
-TOOLS = [("bench", "pindel_tpu_torch.bench", []),
+# limit in seconds.  The bench repeats scenes that phases 5, 6 and 12 run,
+# so it takes two timed runs of each here (its default is five)
+TOOLS = [("bench", "pindel_tpu_torch.bench", ["--runs", "2"]),
          ("kernel_bench", "pindel_tpu_torch.tools.kernel_bench", []),
          ("profile_bench", "pindel_tpu_torch.tools.profile_bench",
           ["--scene", "1", "--runs", "2"]),
+         ("profile_bench_scene3", "pindel_tpu_torch.tools.profile_bench",
+          ["--scene", "3", "--runs", "1"]),
          ("multihost_bench", "pindel_tpu_torch.tools.multihost_bench",
           ["--hosts", "2"])]
 TOOL_TIMEOUT_S = 300
@@ -596,24 +617,34 @@ def run_tool(name: str, module: str, argv, card: str) -> dict:
 
 def check_tools(tools, launches1: int, launches2: int) -> None:
     """Phase 11's checks of the tools' lines: rates and times positive,
-    the busy share in (0, 1], scan launches equal to phases 5 and 6."""
+    the busy share in (0, 1], scan launches equal to phases 5 and 6, and
+    scene 3's keys (its launches are held to phase 12's there)."""
     b = tools["bench"]
-    times = b["runs"] + b["scene2_runs"]
+    times = b["runs"] + b["scene2_runs"] + b["scene3_runs"]
     if not (b["value"] > 0 and b["scene2_value"] > 0
-            and all(t > 0 for t in times)):
-        fail(f"bench: rates {b['value']}, {b['scene2_value']}, walls {times}")
-    if b["launches"] != {"scene1": launches1, "scene2": launches2}:
+            and b["scene3_value"] > 0 and all(t > 0 for t in times)):
+        fail(f"bench: rates {b['value']}, {b['scene2_value']}, "
+             f"{b['scene3_value']}, walls {times}")
+    s3 = {k: v for k, v in b.items() if k.startswith("scene3_")}
+    if not (s3["scene3_windows"] == 3 and s3["scene3_pairs"] > 0
+            and s3["scene3_fallback_ratio"] <= MAX_FALLBACK
+            and s3["scene3_unit"] == "read pairs/s"):
+        fail(f"bench: scene 3 keys {s3}")
+    if {k: b["launches"][k] for k in ("scene1", "scene2")} != {
+            "scene1": launches1, "scene2": launches2}:
         fail(f"bench: scan launches {b['launches']}, phases 5 and 6 "
              f"{launches1} and {launches2}")
     for call, c in tools["kernel_bench"]["calls"].items():
         if not (c["ms"] > 0 and c["k1_ms"] > 0 and c["bound_ms"] > 0
                 and c["launches"] == c["k1_calls"] > 0):
             fail(f"kernel_bench {call}: {c}")
+    for name in ("profile_bench", "profile_bench_scene3"):
+        p = tools[name]
+        if not (p["busy_share"] is not None and 0 < p["busy_share"] <= 1
+                and p["device_s"] > 0 and all(t > 0 for t in p["runs"])):
+            fail(f"{name}: busy share {p['busy_share']}, device "
+                 f"{p['device_s']} s, walls {p['runs']}")
     p = tools["profile_bench"]
-    if not (p["busy_share"] is not None and 0 < p["busy_share"] <= 1
-            and p["device_s"] > 0 and all(t > 0 for t in p["runs"])):
-        fail(f"profile_bench: busy share {p['busy_share']}, device "
-             f"{p['device_s']} s, walls {p['runs']}")
     if p["launches"] != launches1:
         fail(f"profile_bench: scan launches {p['launches']}, phase 5 "
              f"{launches1}")
@@ -623,10 +654,13 @@ def check_tools(tools, launches1: int, launches2: int) -> None:
             and all(r["spawn_to_ready_s"] > 0 for r in workers)):
         fail(f"multihost_bench: {m}")
     log(f"phase 11: bench {b['value']:.1f} reads/s (scene 1), "
-        f"{b['scene2_value']:.1f} read pairs/s (scene 2), scan launches "
-        f"{b['launches']} equal to phases 5 and 6; profile busy share "
-        f"{p['busy_share']:.4%}; --hosts {m['hosts']} speedup "
-        f"{m['speedup']:.3f}")
+        f"{b['scene2_value']:.1f} read pairs/s (scene 2), "
+        f"{b['scene3_value']:.1f} read pairs/s (scene 3, walls "
+        f"{b['scene3_runs']}), scan launches {b['launches']}, scenes 1 "
+        f"and 2 equal to phases 5 and 6; profile busy share "
+        f"{p['busy_share']:.4%} (scene 1), "
+        f"{tools['profile_bench_scene3']['busy_share']:.4%} (scene 3); "
+        f"--hosts {m['hosts']} speedup {m['speedup']:.3f}")
 
 
 def tool_summary(tools) -> dict:
@@ -634,16 +668,20 @@ def tool_summary(tools) -> dict:
     b = tools["bench"]
     return dict(
         bench=dict(launches=b["launches"], value=b["value"],
-                   scene2_value=b["scene2_value"]),
+                   scene2_value=b["scene2_value"],
+                   scene3_value=b["scene3_value"]),
         kernel_bench={k: {x: c[x] for x in ("ms", "k1_ms", "bound_ms",
                                             "launches")}
                       for k, c in tools["kernel_bench"]["calls"].items()},
-        profile_bench=dict(busy_share=tools["profile_bench"]["busy_share"],
-                           launches=tools["profile_bench"]["launches"]),
+        profile_bench={name: dict(busy_share=tools[name]["busy_share"],
+                                  launches=tools[name]["launches"])
+                       for name in ("profile_bench",
+                                    "profile_bench_scene3")},
         multihost_bench=dict(speedup=tools["multihost_bench"]["speedup"]))
 
 
 def main() -> int:
+    t_start = time.monotonic()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile-dir", default=None,
                     help="also trace a run of each full-size scene with "
@@ -1999,6 +2037,64 @@ def main() -> int:
                for name, module, argv in TOOLS}
     check_tools(tools, scene1["launches"], scene2["launches"])
 
+    # ---- 12. scene 3 once through the CLI: three windows of BAM pairs with
+    # BreakDancer calls, every scan call held against the plain version
+    from pindel_tpu_torch import bench
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_scene3_") as s3:
+        t0 = time.monotonic()
+        scene3_spec = bench.build_scene3(s3)
+        log(f"scene 3: {scene3_spec.n} read pairs over 15000000 bp (BAM + "
+            f"BreakDancer calls, -w 5), built in "
+            f"{time.monotonic() - t0:.1f} s")
+        reset_counts()
+        engine_jax.PLAIN_ON_CARD = 0
+        run3, calls = recorded(lambda: bench.run(
+            scene3_spec, os.path.join(s3, "run"), torch.device("cuda:0")))
+        c3 = run3["counters"]
+        bad = bench.problems(scene3_spec, [run3], kernel=True)
+        if bad:
+            fail(f"scene 3: {bad}")
+        if engine_jax.PLAIN_ON_CARD:
+            fail(f"scene 3: the plain _search_kernel ran "
+                 f"{engine_jax.PLAIN_ON_CARD} times on the card")
+        log(f"scene 3: wall {run3['wall']:.3f} s (first use), "
+            f"{scene3_spec.n / run3['wall']:.1f} read pairs/s, reports "
+            f"equal to the reference's digests, fallback "
+            f"{g_fallback.fallback}/{g_fallback.total}, windows {c3['windows']} (visited "
+            f"{c3['windows_visited']}), scan launches {c3['launches']}, "
+            f"_far_win_kernel rows {c3['far_win_rows']}, legacy rows "
+            f"{c3['legacy_rows']}, shard kernel launches "
+            f"{c3['shard_launches']}, peak card memory "
+            f"{c3['peak_mib']:.1f} MiB (the recorded scan inputs "
+            f"included)  [{card}]")
+        for w in c3["by_window"]:
+            log(f"  scene 3 window {w['index']} [{w['start']}, {w['end']}):"
+                f" {w['reads']} reads, read in at {w['read_s']:.3f} s, "
+                f"staged at {w.get('staged_s', float('nan')):.3f} s, "
+                f"reported at {w.get('done_s', float('nan')):.3f} s")
+        for pname, sec in sorted(run3["phases"].items(),
+                                 key=lambda kv: -kv[1])[:12]:
+            log(f"  phase {pname:<52s} {sec:9.3f} s  [{card}]")
+        scan3 = check_calls("scene 3", calls)
+        max_err = max(max_err, scan3["max_abs_err"])
+        del calls
+        torch.cuda.empty_cache()
+        # K2, K3 and K4 whole at scene 3's largest chunk of each, as 6b
+        whole["scene3"] = whole_calls(
+            "scene 3", scene3_spec.argv_of(os.path.join(s3, "whole")),
+            reports(os.path.join(s3, "run")))
+    for name in ("bench", "profile_bench_scene3"):
+        got = tools[name]["launches"]
+        got = got["scene3"] if name == "bench" else got
+        if got != c3["launches"]:
+            fail(f"{name}: scene 3 scan launches {got}, phase 12 "
+                 f"{c3['launches']}")
+    scene3 = dict({k: scan3[k] for k in SCAN_KEYS},
+                  launches=c3["launches"], wall=run3["wall"],
+                  far_win_rows=c3["far_win_rows"],
+                  legacy_rows=c3["legacy_rows"],
+                  windows=c3["windows"], peak_mib=c3["peak_mib"])
+
     loaded = reference_modules()
     if loaded:
         fail(f"a run loaded {loaded}")
@@ -2008,6 +2104,7 @@ def main() -> int:
              "comparisons")
     paths = {label: {k: v[k] for k in ("launches", *SCAN_KEYS, "wall")}
              for label, v in (("scene1", scene1), ("scene2", scene2))}
+    paths["scene3"] = scene3
     paths.update(mesh_paths)
     paths.update(hosts_paths)
     # K1 at scene 1's largest main-path shape; launches over every path
@@ -2042,6 +2139,8 @@ def main() -> int:
     k9_paths["k8_small_calls"] = dict(launches=small_launches, calls=small)
     k9_paths["backend_jax_small_scenes"] = dict(launches=jax_small_launches)
     k9_paths.update(jax_paths)
+    k9_paths["scene3_legacy_lanes"] = dict(launches=c3["shard_launches"],
+                                           legacy_rows=c3["legacy_rows"])
     kernels.append(dict(
         name="sharded_search", route="cuda",
         source="pindel_tpu_torch/csrc/sharded_search.cu",
@@ -2053,6 +2152,7 @@ def main() -> int:
         bound_by=top["bound_by"], bound_earlier_ms=top["bound_earlier_ms"],
         library_ms=None, paths=k9_paths))
     log(json.dumps({"kernels": kernels}))
+    log(f"chip_smoke: total command time {time.monotonic() - t_start:.1f} s")
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

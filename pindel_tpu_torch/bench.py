@@ -1,37 +1,50 @@
 """Benchmark of the port: split-reads/s on scene 1 and read pairs/s on
-scene 2, through the port's CLI on the card, gated on the reference's
-reports.
+scenes 2 and 3, through the port's CLI on the card, gated on the
+reference's reports.
 
     python -m pindel_tpu_torch.bench [--runs 5] [--device cuda|cpu]
 
 The counterpart of the repository's ``bench.py``, with the same scenes
 (``testing/scenes.py``: ``SCENE1`` at ``SCENE1_FLAGS``, 50,000 pindel-text
 reads over 6 Mb; ``SCENE2``, 12,000 BAM read pairs over 2 Mb with a
-BreakDancer calls file) run through ``python -m pindel_tpu_torch
---backend fused``.  Scene generation and the builds of the scan kernel and
-the native libraries are set-up; each scene then takes one untimed run
-(its first use), then ``--runs`` timed runs, each wall read after
-``torch.cuda.synchronize()``.
+BreakDancer calls file; ``SCENE3``, about 90,750 BAM read pairs with
+BreakDancer calls over 15 Mb, three 5 Mb windows, in the shape of the
+reference pindel's ``colousingbd15`` run) run through ``python -m
+pindel_tpu_torch --backend fused``.  Scene generation and the builds of
+the scan kernel and the native libraries are set-up; each scene then takes
+one untimed run (its first use), then ``--runs`` timed runs, each wall
+read after ``torch.cuda.synchronize()``.  A scene whose first run fails
+its gate is not timed.
 
 The gate: every run's reports must equal the JAX package's reports on the
-same scene, held as sha256 digests (``testing/scene1_digests.json``,
-``testing/scene2_digests.json``); scene 1's ``_D`` report must not be
-empty, and at most ``MAX_FALLBACK`` of the reads may take the host oracle.
-A failed gate prints ``"value": 0.0`` and ``"correct": false`` and exits 1,
-whichever scene failed.  There is no ``vs_baseline``: ``bench.py`` times
+same scene, held as sha256 digests (``testing/scene{1,2,3}_digests.json``);
+the ``_D`` report must not be empty, at most ``MAX_FALLBACK`` of the reads
+may take the host oracle, the scan kernel's launches must be equal from
+run to run, and on a card the kernel must have launched and, on the
+BreakDancer scenes, ``_far_win_kernel`` (K4) must have searched rows.
+Scene 3 must also span its three windows.  A failed gate prints
+``"value": 0.0`` and ``"correct": false`` and exits 1, whichever scene
+failed.  There is no ``vs_baseline``: ``bench.py`` times
 the reference pindel compiled from a C++ checkout that is not part of this
 repository, and the port's gate is the JAX package's reports instead.
 
 Progress goes to standard error.  The last line of standard output is one
 JSON object: ``metric``, ``value`` (scene 1's median rate), ``unit``,
 ``runs`` (the walls), ``best`` (the rate of the fastest run), ``spread``
-((max - min) / median of the walls), ``fallback_ratio``, ``scene2_value``,
-``scene2_runs``, ``scene2_fallback_ratio``, ``correct``, ``layers`` (each
-scene's coarse timer phases of its last timed run; they overlap, so they
-are phases, not shares of the wall), ``launches`` (the scan kernel's
-launches in each scene's last run), ``device`` (the card's name and power
-limit), and the set-up times (``build_s``, ``scene_build_s``,
-``first_use_s``).
+((max - min) / median of the walls), ``fallback_ratio``; for scenes 2 and
+3 ``sceneN_value``, ``sceneN_unit``, ``sceneN_runs``,
+``sceneN_fallback_ratio``, ``sceneN_pairs`` and ``sceneN_windows`` (the
+windows over the chromosome's bases; the window loop also visits an empty
+window at the chromosome's end when its length is a multiple of the
+window, as the reference's does); ``correct``, ``layers`` (each scene's
+coarse timer phases of its last timed run; they overlap, so they are
+phases, not shares of the wall), ``launches`` (the scan kernel's launches
+in each scene's last run), ``counters`` (each scene's last run: scan
+launches, windows visited and with bases, ``_far_win_kernel`` rows, legacy
+per-lane rows, shard kernel launches, peak card memory in MiB, and per
+window its reads and the seconds at which it was read in, staged and
+reported), ``device`` (the card's name and power limit), and the set-up
+times (``build_s``, ``scene_build_s``, ``first_use_s``).
 """
 from __future__ import annotations
 
@@ -43,16 +56,20 @@ import statistics
 import sys
 import tempfile
 import time
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
+
+import torch
 
 from pindel_tpu_torch.__main__ import main as port_main
-from pindel_tpu_torch.ops import scan_cuda
+from pindel_tpu_torch.ops import (engine_fused, engine_jax, scan_cuda,
+                                  sharded_search_cuda)
 from pindel_tpu_torch.parallel.multihost import build_libraries
 from pindel_tpu_torch.pipeline import resolve_device
 from pindel_tpu_torch.profiling import g_fallback, g_timer
 from pindel_tpu_torch.testing.scenes import (SCENE1, SCENE1_DIGESTS,
                                              SCENE1_FLAGS, SCENE2,
-                                             SCENE2_DIGESTS, bam_argv,
+                                             SCENE2_DIGESTS, SCENE3,
+                                             SCENE3_DIGESTS, bam_argv,
                                              digests, load_digests, reports,
                                              write_scene)
 from pindel_tpu_torch.tools import measure
@@ -66,14 +83,18 @@ MAX_FALLBACK = 0.01
 @dataclasses.dataclass
 class Scene:
     """A benchmark scene: its name, unit, size, its CLI run (output prefix
-    -> arguments, ``--device`` left out) and the sha256 of the reference's
-    reports, by suffix."""
+    -> arguments, ``--device`` left out), the sha256 of the reference's
+    reports, by suffix, whether a kernel run must send rows through
+    ``_far_win_kernel`` (BreakDancer calls), and the windows over its
+    chromosome's bases it must span (None: not checked)."""
 
     name: str
     unit: str
     n: int
     argv_of: Callable[[str], List[str]]
     want: Dict[str, str]
+    far_win: bool = False
+    windows: Optional[int] = None
 
 
 def text_scene(name: str, fa: str, reads_txt: str, n: int,
@@ -85,12 +106,13 @@ def text_scene(name: str, fa: str, reads_txt: str, n: int,
 
 
 def bam_scene(name: str, paths: Dict[str, str], n: int,
-              want: Dict[str, str]) -> Scene:
+              want: Dict[str, str], windows: Optional[int] = None) -> Scene:
     """A BAM + BreakDancer scene of ``n`` read pairs (``paths`` as
     ``SCENE2.build`` gives them) run at scene 2's flags."""
     return Scene(name, "read pairs", n,
                  lambda prefix: bam_argv(SCENE2, paths, prefix)
-                 + ["--backend", "fused"], want)
+                 + ["--backend", "fused"], want, far_win=True,
+                 windows=windows)
 
 
 def build_scene1(d: str) -> Scene:
@@ -105,8 +127,15 @@ def build_scene2(d: str) -> Scene:
                      load_digests(SCENE2_DIGESTS))
 
 
+def build_scene3(d: str) -> Scene:
+    paths = SCENE3.build(d)
+    return bam_scene("scene3", paths, int(paths["pairs"]),
+                     load_digests(SCENE3_DIGESTS), windows=3)
+
+
 # the scenes in the order they run: scene 1 gives the metric
-SCENES = {"scene1": build_scene1, "scene2": build_scene2}
+SCENES = {"scene1": build_scene1, "scene2": build_scene2,
+          "scene3": build_scene3}
 
 
 def log(msg: str) -> None:
@@ -116,18 +145,35 @@ def log(msg: str) -> None:
 def run(scene: Scene, prefix: str, dev) -> dict:
     """One CLI run of ``scene`` on ``dev``: its wall (device work
     included), the digests of its reports, whether ``_D`` is empty, the
-    scan kernel's launches, the fallback ratio and the timer phases."""
+    scan kernel's launches, the fallback ratio, the timer phases and the
+    run's ``counters``."""
     scan_cuda.LAUNCHES = 0
-    t0 = time.monotonic()
-    rc = port_main(scene.argv_of(prefix) + ["--device", str(dev)])
-    measure.sync(dev)
-    wall = time.monotonic() - t0
+    sharded_search_cuda.LAUNCHES = 0
+    engine_fused.FAR_WIN_ROWS = 0
+    engine_jax.LEGACY_ROWS = 0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    with measure.window_log() as windows:
+        t0 = time.monotonic()
+        rc = port_main(scene.argv_of(prefix) + ["--device", str(dev)])
+        measure.sync(dev)
+        wall = time.monotonic() - t0
     if rc != 0:
         raise RuntimeError(f"{scene.name}: the CLI returned {rc}")
     got = reports(prefix)
+    counters = dict(
+        launches=scan_cuda.LAUNCHES,
+        windows=sum(w["start"] < w["end"] for w in windows),
+        windows_visited=len(windows),
+        far_win_rows=engine_fused.FAR_WIN_ROWS,
+        legacy_rows=engine_jax.LEGACY_ROWS,
+        shard_launches=sharded_search_cuda.LAUNCHES,
+        peak_mib=(torch.cuda.max_memory_allocated(dev) / 2 ** 20
+                  if dev.type == "cuda" else None),
+        by_window=windows)
     return dict(wall=wall, digests=digests(got), d_empty=not got.get("D"),
                 launches=scan_cuda.LAUNCHES, fallback=g_fallback.ratio(),
-                phases=g_timer.items())
+                phases=g_timer.items(), counters=counters)
 
 
 def problems(scene: Scene, runs: List[dict], kernel: bool) -> List[str]:
@@ -145,6 +191,13 @@ def problems(scene: Scene, runs: List[dict], kernel: bool) -> List[str]:
         if r["fallback"] > MAX_FALLBACK:
             out.append(f"{scene.name} run {i}: fallback ratio "
                        f"{r['fallback']} above {MAX_FALLBACK}")
+        c = r.get("counters", {})
+        if scene.windows is not None and c.get("windows") != scene.windows:
+            out.append(f"{scene.name} run {i}: {c.get('windows')} windows, "
+                       f"not {scene.windows}")
+        if kernel and scene.far_win and not c.get("far_win_rows"):
+            out.append(f"{scene.name} run {i}: _far_win_kernel searched "
+                       "no row")
     launches = {r["launches"] for r in runs}
     if len(launches) != 1:
         out.append(f"{scene.name}: scan launches differ between runs: "
@@ -191,23 +244,36 @@ def main(argv=None) -> int:
             log(f"{key}: {scene.n} {scene.unit}, built in {built:.3f} s")
             first = run(scene, os.path.join(d, "first"), dev)
             log(f"{key}: first use {first['wall']:.3f} s")
-            timed = [run(scene, os.path.join(d, f"run{i}"), dev)
-                     for i in range(args.runs)]
+            kernel = dev.type == "cuda"
+            timed = []
+            if not problems(scene, [first], kernel):
+                timed = [run(scene, os.path.join(d, f"run{i}"), dev)
+                         for i in range(args.runs)]
+            bad = problems(scene, [first] + timed, kernel)
+            timed = timed or [first]
             walls = [r["wall"] for r in timed]
             med = statistics.median(walls)
-            bad = problems(scene, [first] + timed, dev.type == "cuda")
             failed += bad
             for line in bad:
                 log(f"GATE FAILED: {line}")
+            c = timed[-1]["counters"]
             log(f"{key}: walls {walls}, median {med:.3f} s, "
                 f"{scene.n / med:.1f} {scene.unit}/s, scan launches "
-                f"{timed[-1]['launches']}, fallback {timed[-1]['fallback']}"
-                f"  [{card}]")
+                f"{c['launches']}, fallback {timed[-1]['fallback']}, "
+                f"windows {c['windows']} (visited {c['windows_visited']}), "
+                f"_far_win_kernel rows {c['far_win_rows']}, legacy rows "
+                f"{c['legacy_rows']}, shard launches {c['shard_launches']}, "
+                f"peak card memory {c['peak_mib']} MiB  [{card}]")
+            for w in c["by_window"]:
+                log(f"  window {w['index']} [{w['start']}, {w['end']}): "
+                    f"{w['reads']} reads, read in at {w['read_s']:.3f} s, "
+                    f"staged at {w.get('staged_s', float('nan')):.3f} s, "
+                    f"reported at {w.get('done_s', float('nan')):.3f} s")
             out[key] = dict(scene=scene, walls=walls, median=med,
                             last=timed[-1], built=built,
                             first=first["wall"])
 
-    s1, s2 = out["scene1"], out["scene2"]
+    s1 = out["scene1"]
     correct = not failed
 
     def rate(s):
@@ -221,20 +287,28 @@ def main(argv=None) -> int:
         "best": s1["scene"].n / min(s1["walls"]) if correct else 0.0,
         "spread": (max(s1["walls"]) - min(s1["walls"])) / s1["median"],
         "fallback_ratio": s1["last"]["fallback"],
-        "scene2_value": rate(s2),
-        "scene2_unit": "read pairs/s",
-        "scene2_runs": s2["walls"],
-        "scene2_fallback_ratio": s2["last"]["fallback"],
+    }
+    for key, s in out.items():
+        if key == "scene1":
+            continue
+        result.update({
+            f"{key}_value": rate(s),
+            f"{key}_unit": f"{s['scene'].unit}/s",
+            f"{key}_runs": s["walls"],
+            f"{key}_fallback_ratio": s["last"]["fallback"],
+            f"{key}_pairs": s["scene"].n,
+            f"{key}_windows": s["last"]["counters"]["windows"]})
+    result.update({
         "correct": correct,
         "layers": {k: coarse(v["last"]["phases"]) for k, v in out.items()},
         "launches": {k: v["last"]["launches"] for k, v in out.items()},
+        "counters": {k: v["last"]["counters"] for k, v in out.items()},
         "device": card,
         "reads": s1["scene"].n,
-        "scene2_pairs": s2["scene"].n,
         "build_s": build_s,
         "scene_build_s": {k: v["built"] for k, v in out.items()},
         "first_use_s": {k: v["first"] for k, v in out.items()},
-    }
+    })
     print(json.dumps(result), flush=True)
     return 0 if correct else 1
 

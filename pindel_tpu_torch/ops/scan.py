@@ -40,6 +40,11 @@ def dead_level(lmax: int) -> int:
     return U8DEAD if lmax <= 255 else I16DEAD
 
 
+# rows scanned at a time: a block's [rows, WE] int32 state stays in the
+# CPU's cache (rows are independent, so blocking changes no bit)
+BLOCK_ROWS = 256
+
+
 def scan_rows_ref(tiles, qq, valid_w, qlen, thr, off=None,
                   *, w: int, lmax: int, mpm: int, lsteps: int = 0):
     """[R, T] int8 tiles, [R, lmax] int8 queries, [R] int32 valid_w / qlen /
@@ -47,19 +52,51 @@ def scan_rows_ref(tiles, qq, valid_w, qlen, thr, off=None,
 
     Lane space is WE = T - lmax >= w; candidates of row r live in
     ``[off[r], off[r] + valid_w[r])``.  With ``off`` omitted, T == w + lmax.
+    Each row's result depends on that row alone: on the CPU the trailing
+    run of rows equal to the last one (a batch bucket's padding) is scanned
+    once and copied, and the rest in blocks of ``BLOCK_ROWS``.
     """
+    r, t = tiles.shape
+    assert t - lmax >= w, (t, w, lmax)
+    if off is None:
+        assert t - lmax == w, (t, w, lmax)
+        off = torch.zeros((r,), dtype=torch.int32, device=tiles.device)
+    kw = dict(w=w, lmax=lmax, mpm=mpm, lsteps=lsteps)
+    if tiles.device.type != "cpu" or r == 0:
+        return _scan_block(tiles, qq, valid_w, qlen, thr, off, **kw)
+    n = r - _trailing_copies(tiles, qq, valid_w, qlen, thr, off)
+    parts = [_scan_block(*(x[i:min(i + BLOCK_ROWS, n)]
+                           for x in (tiles, qq, valid_w, qlen, thr, off)),
+                         **kw)
+             for i in range(0, n, BLOCK_ROWS)]
+    kmin = torch.cat([p[0] for p in parts])
+    k2 = torch.cat([p[1] for p in parts])
+    if n < r:
+        kmin = torch.cat([kmin, kmin[-1:].expand(r - n, -1)])
+        k2 = torch.cat([k2, k2[-1:].expand(r - n, -1)])
+    return kmin, k2
+
+
+def _trailing_copies(tiles, *rows) -> int:
+    """How many rows before the last one equal it in every input."""
+    same = (tiles == tiles[-1:]).all(dim=1)
+    for x in rows:
+        same &= (x == x[-1:]).all(dim=1) if x.dim() == 2 else x == x[-1]
+    diff = torch.nonzero(~same)
+    return tiles.shape[0] - 1 - (int(diff[-1]) + 1 if len(diff) else 0)
+
+
+def _scan_block(tiles, qq, valid_w, qlen, thr, off,
+                *, w: int, lmax: int, mpm: int, lsteps: int = 0):
+    """``scan_rows_ref`` on rows with ``off`` given."""
     lsteps = lsteps or lmax
     dead = dead_level(lmax)
     shift = key_shift(w)
     assert ((dead + lmax) << shift) + (1 << shift) < 2 ** 31, (w, lmax)
     r, t = tiles.shape
     we = t - lmax
-    assert we >= w, (t, w, lmax)
     i32 = torch.int32
     dev = tiles.device
-    if off is None:
-        assert we == w, (t, w, lmax)
-        off = torch.zeros((r,), dtype=i32, device=dev)
     off_c = off.to(i32)[:, None]
     qlen_c = qlen.to(i32)[:, None]
     u8 = torch.uint8

@@ -9,12 +9,14 @@ writes with the scene's flags: the GPU machine has no jax, so the port's
 reports are compared there with these bytes.  tests/test_torch_pipeline.py
 and tests/test_torch_bam.py keep them equal to the JAX package's output;
 ``PYTHONPATH=. python tests/test_torch_pipeline.py --write-golden`` rewrites
-them.  ``SCENE1`` and ``SCENE2`` are scenes 1 and 2 of bench.py; their
-reference reports are too large for the JSON, so ``scene1_digests.json``
-and ``scene2_digests.json`` hold their sha256 (rewritten by
-``PYTHONPATH=. python tests/test_torch_bench.py --write-scene1-digests``
-and ``PYTHONPATH=. python tests/test_torch_bam.py
---write-scene2-digests``).
+them.  ``SCENE1`` and ``SCENE2`` are scenes 1 and 2 of bench.py, and
+``SCENE3`` the port's scene 3 (three windows of BAM pairs with BreakDancer
+calls, ``build_scene3``); their reference reports are too large for the
+JSON, so ``scene1_digests.json``, ``scene2_digests.json`` and
+``scene3_digests.json`` hold their sha256 (rewritten by ``PYTHONPATH=.
+python tests/test_torch_bench.py --write-scene1-digests``, ``PYTHONPATH=.
+python tests/test_torch_bam.py --write-scene2-digests`` and ``PYTHONPATH=.
+python tests/test_torch_scene3.py --write-scene3-digests``).
 """
 from __future__ import annotations
 
@@ -39,6 +41,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(_HERE, "golden_reports.json")
 SCENE1_DIGESTS = os.path.join(_HERE, "scene1_digests.json")
 SCENE2_DIGESTS = os.path.join(_HERE, "scene2_digests.json")
+SCENE3_DIGESTS = os.path.join(_HERE, "scene3_digests.json")
 
 # name -> (standard_scene arguments, CLI flags besides -s, the same flags as
 # Settings fields)
@@ -357,6 +360,125 @@ def build_scene2(d: str) -> Dict[str, str]:
 
 
 SCENE2 = BamScene(build_scene2, SCENE2_FLAGS, far_win=True)
+
+# scene 3: the shape of the reference's colousingbd15 acceptance run,
+# BreakDancer calls over a 15 Mb region (three windows at the default -w 5)
+SCENE3_LEN = 15_000_000
+SCENE3_BOUNDARY_SIZE = 4_000
+
+
+def scene3_events(chrom_len: int, rng: np.random.Generator):
+    """Scene 3's event plan: one event every ~19.9 kb from 50 kb (one per
+    20 kb of chromosome), kinds DEL, SI, DI, INV, TD in turn, sizes drawn
+    from ``rng`` as ``build_scene2`` draws them; the two events nearest
+    each window boundary (a third and two thirds of ``chrom_len``) become
+    a DEL and an INV of ``SCENE3_BOUNDARY_SIZE`` bp that start 2 kb before
+    it.  Returns (kind, pos, size) triples in position order and the
+    boundaries."""
+    n_events = chrom_len // 20_000
+    kinds = ["DEL", "SI", "DI", "INV", "TD"] * (n_events // 5)
+    step = (chrom_len - 100_000) / len(kinds)
+    bounds = [chrom_len * k // 3 for k in (1, 2)]
+    plan = []
+    for i, kind in enumerate(kinds):
+        size = int(rng.integers(60, 2500)) if kind != "SI" else \
+            int(rng.integers(3, 20))
+        plan.append([kind, 50_000 + int(i * step), size])
+    for b in bounds:
+        near = sorted(range(len(plan)), key=lambda i: abs(plan[i][1] - b))[:2]
+        for kind, i in zip(("DEL", "INV"), sorted(near)):
+            plan[i] = [kind, b - 2_000, SCENE3_BOUNDARY_SIZE]
+    plan.sort(key=lambda e: e[1])
+    return [tuple(e) for e in plan], bounds
+
+
+def _local_event_reads(sim: Simulator, ref: str, chrom: str, kind: str,
+                       pos: int, size: int, n_reads: int, out: SimReads,
+                       margin: int = 20_000) -> None:
+    """``sim.reads_for_event`` on the reference around the event only: the
+    same reads, names and draws as on the whole reference, without copying
+    a long chromosome for every event's ALT haplotype."""
+    lo = max(pos - margin, 0)
+    local = SimReads([], [], [])
+    sim.reads_for_event(ref[lo:pos + size + margin], chrom,
+                        Event(kind, chrom, pos - lo, size=size), n_reads,
+                        local)
+    head = f"sim_{kind}_{pos - lo}_"
+    for name, seq, meta in zip(local.names, local.seqs, local.metas):
+        assert name.startswith(head)
+        out.names.append(f"sim_{kind}_{pos}_{name[len(head):]}")
+        out.seqs.append(seq)
+        out.metas.append((meta[0], meta[1], meta[2] + lo, *meta[3:]))
+
+
+def build_scene3(d: str, chrom_len: int = SCENE3_LEN) -> Dict[str, str]:
+    """Scene 3, ``scene3_colo15``: BAM read pairs with a BreakDancer calls
+    file over three windows, in the shape of the reference pindel's
+    ``colousingbd15`` acceptance run (COLO-829 chr20 reads with
+    BreakDancer calls over a 15 Mb region; pindel 0.2.5b9 Makefile:58-59)
+    at scene 2's read density, run at ``SCENE2_FLAGS`` and the CLI's
+    default 5 Mb window.
+
+    ``chr20`` is ``chrom_len`` bases of random sequence (seed 2009).  The
+    events are ``scene3_events``'s plan, each with 40 split reads from
+    scene 2's generator written as anchored BAM pairs (``text_to_bam``:
+    anchor mapped, split mate unmapped, insert 500); each DEL of at least
+    1 kb also gets eight discordant pairs whose mapped mates flank it, as
+    ``build_rp_bigdel`` builds them, so RP discovery adds evidence
+    windows, the boundary DELs' across two windows.  4 reference-matching
+    pairs per kb of chromosome are noise (60,000 at 15 Mb), and the
+    BreakDancer file has one line per event in scene 2's format.
+
+    Cuts against the source: the sequence is random (no repeats, no N
+    gaps); the read density is scene 2's, since COLO-829's read file is
+    not in the repository; there are no properly-paired background pairs
+    (a real BAM is mostly proper pairs, which intake reads and discards);
+    the region is 15 Mb, the source's own, not the 64.4 Mb of chr20.  The
+    source reads pindel-format input, with which ``-b`` is inert in both
+    packages, so the reads come as BAM pairs, as in scene 2.  The tests
+    cut ``chrom_len`` to 600 kb and run it at ``-w 0.2``: three windows,
+    two boundary events each, at the same density.  ``pairs`` is the
+    number of read pairs, ``events`` of events, ``discordant`` of
+    discordant pairs."""
+    chrom = "chr20"
+    rng = np.random.default_rng(2009)
+    ref = random_seq(rng, chrom_len)
+    plan, _bounds = scene3_events(chrom_len, rng)
+    sim = Simulator(rng)
+    out = SimReads([], [], [])
+    bd_lines = ["#chr1\tpos1\tori1\tchr2\tpos2\tori2\ttype\tsize\tscore"]
+    extra = []
+    for i, (kind, pos, size) in enumerate(plan):
+        _local_event_reads(sim, ref, chrom, kind, pos, size, 40, out)
+        bd_lines.append(f"{chrom}\t{pos}\t20+20-\t{chrom}\t{pos + size}"
+                        f"\t18+19-\t{kind}\t{size}\t99")
+        if kind != "DEL" or size < 1_000:
+            continue
+        for k in range(8):
+            a = pos - 300 + int(rng.integers(0, 200))
+            b = pos + size + int(rng.integers(0, 200))
+            tlen = b + 100 - a
+            extra += [
+                BamRecord(f"rp{i}_{k}", FLAG_PAIRED | FLAG_READ1
+                          | FLAG_MREVERSE, 0, a, 60, [(100, "M")], 0, b,
+                          tlen, ref[a:a + 100], tags={"NM": 0}),
+                BamRecord(f"rp{i}_{k}", FLAG_PAIRED | FLAG_READ2
+                          | FLAG_REVERSE, 0, b, 60, [(100, "M")], 0, a,
+                          -tlen, ref[b:b + 100], tags={"NM": 0})]
+    sim.ref_noise_reads(ref, chrom, chrom_len * 4 // 1000, out)
+    bd = os.path.join(d, "scene3.bd")
+    with open(bd, "w") as fh:
+        fh.write("\n".join(bd_lines) + "\n")
+    txt = os.path.join(d, "scene3_reads.txt")
+    out.write(txt)
+    bam = os.path.join(d, "scene3.bam")
+    pairs = text_to_bam(ref, chrom, txt, bam, extra)
+    return dict(fa=_write_ref(d, chrom, ref), cfg=_write_cfg(d, bam),
+                bd=bd, pairs=str(pairs), events=str(len(plan)),
+                discordant=str(len(extra) // 2))
+
+
+SCENE3 = BamScene(build_scene3, SCENE2_FLAGS, far_win=True)
 
 
 def two_region_lanes(seed: int, n_reads: int, scale: int):

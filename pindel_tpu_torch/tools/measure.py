@@ -1,6 +1,6 @@
 """What the port's measurement scripts share: the card's published peaks,
-the scan kernel's bound, the card line, CUDA event timing and the
-device-busy share of a profiled run.
+the scan kernel's bound, the card line, CUDA event timing, the
+device-busy share of a profiled run and the record of a run's windows.
 
 Used by ``chip_smoke.py`` and the tools (``pindel_tpu_torch.bench``,
 ``pindel_tpu_torch.tools.*``).  A tool runs on the card unless it is
@@ -10,6 +10,7 @@ measurement falls back to the CPU.
 """
 from __future__ import annotations
 
+import contextlib
 import subprocess
 import time
 
@@ -146,3 +147,52 @@ def top_device_kernels(prof, n: int = 10):
                               us + e.time_range.end - e.time_range.start)
     top = sorted(totals.items(), key=lambda kv: -kv[1][1])[:n]
     return [(name, calls, us / 1e3) for name, (calls, us) in top]
+
+
+@contextlib.contextmanager
+def window_log():
+    """Records the port's window loop in the runs inside the context: per
+    window (in the order its reads were read in) its index, bounds
+    (``start``, ``end``), the split reads read in, and the seconds from the
+    context's start at which its reads were in (``read_s``), its search was
+    staged (``staged_s``: the RP -> BD update and far-end dispatch of the
+    deep pipeline) and its host stages ended (``done_s``: detectors and
+    reports).  Yields the list it fills."""
+    from pindel_tpu_torch.pipeline import Pipeline
+    rows = []
+    t0 = time.monotonic()
+    real = {name: getattr(Pipeline, name) for name in (
+        "_window_reads", "_window_reads_bam", "_search_stage",
+        "_process_window")}
+
+    def read_in(name):
+        def wrapped(self, chrom, window):
+            out = real[name](self, chrom, window)
+            reads = out[0] if name == "_window_reads_bam" else out
+            rows.append(dict(index=self._window_counter - 1,
+                             start=window.current_start,
+                             end=window.current_end, reads=len(reads),
+                             read_s=time.monotonic() - t0))
+            return out
+        return wrapped
+
+    def stamp(name, key):
+        def wrapped(self, pending, *args):
+            out = real[name](self, pending, *args)
+            index = pending[0].index
+            for row in reversed(rows):
+                if row["index"] == index:
+                    row[key] = time.monotonic() - t0
+                    break
+            return out
+        return wrapped
+
+    Pipeline._window_reads = read_in("_window_reads")
+    Pipeline._window_reads_bam = read_in("_window_reads_bam")
+    Pipeline._search_stage = stamp("_search_stage", "staged_s")
+    Pipeline._process_window = stamp("_process_window", "done_s")
+    try:
+        yield rows
+    finally:
+        for name, fn in real.items():
+            setattr(Pipeline, name, fn)

@@ -2,12 +2,13 @@
 registry, trace the last run with ``torch.profiler`` and, optionally,
 cProfile.
 
-    python -m pindel_tpu_torch.tools.profile_bench [--scene 1|2]
+    python -m pindel_tpu_torch.tools.profile_bench [--scene 1|2|3]
         [--backend fused] [--runs 2] [--threads 1] [--cprofile]
         [--sort cumulative] [--trace DIR] [--device cuda|cpu]
 
 The counterpart of ``tools/profile_bench.py``.  The scene (``bench.py``'s
-scene 1 or 2, built by ``pindel_tpu_torch.bench``) is written under the
+scene 1 or 2, or the port's scene 3, built by ``pindel_tpu_torch.bench``)
+is written under the
 system's temporary directory.  Each run goes through the port's CLI with
 the scene's flags, ``-T THREADS``, ``--backend BACKEND`` and ``--profile``;
 its reports are held against the reference's digests as the bench holds
@@ -15,12 +16,14 @@ them.  The last run's full timer report is printed; that run is traced
 with ``torch.profiler`` (and profiled with cProfile under ``--cprofile``),
 and the script prints its device-busy share (the union of the trace's
 device intervals over the run's wall) and the device kernels with the most
-time; ``--trace DIR`` writes the Chrome trace there.
+time, and the last run's counters (``bench.run``: windows, K4 rows,
+legacy rows, shard kernel launches, peak card memory, per-window times);
+``--trace DIR`` writes the Chrome trace there.
 
 Progress and reports go to standard error; the last line of standard
 output is one JSON object: the walls, the last run's coarse and fine
 phases, device seconds, busy share, top kernels, scan launches,
-``correct``, ``device`` (the card's name and power limit) and ``build_s``.
+``counters``, ``correct``, ``device`` (the card's name and power limit) and ``build_s``.
 """
 from __future__ import annotations
 
@@ -49,7 +52,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m pindel_tpu_torch.tools.profile_bench",
         description=__doc__.splitlines()[0])
-    ap.add_argument("--scene", type=int, choices=(1, 2), default=1)
+    ap.add_argument("--scene", type=int, choices=(1, 2, 3), default=1)
     ap.add_argument("--backend", default="fused", choices=BACKENDS)
     ap.add_argument("--cprofile", action="store_true",
                     help="also run cProfile over the last run")
@@ -120,6 +123,9 @@ def main(argv=None) -> int:
         + f"  [{card}]")
     for name, calls, ms in top:
         log(f"  {ms:12.4f} ms {calls:6d} calls  {name[:100]}")
+    counters = last["counters"]
+    log("counters of the traced run: " + ", ".join(
+        f"{k} {v}" for k, v in counters.items() if k != "by_window"))
     if args.trace:
         os.makedirs(args.trace, exist_ok=True)
         path = os.path.join(args.trace, f"trace_{key}.json")
@@ -131,7 +137,8 @@ def main(argv=None) -> int:
         layers=bench.coarse(last["phases"]), phases=last["phases"],
         device_s=device_s, busy_share=busy,
         top_kernels=[dict(name=n, calls=c, ms=ms) for n, c, ms in top],
-        launches=last["launches"], fallback_ratio=last["fallback"],
+        launches=last["launches"], counters=counters,
+        fallback_ratio=last["fallback"],
         correct=not bad, device=card, build_s=build_s,
         first_use_s=runs[0]["wall"])), flush=True)
     return 0 if not bad else 1

@@ -233,3 +233,25 @@ def test_sparse_rows_rule():
     assert got.tolist() == [False, False, True, True, False, False, False]
     got = sparse_rows(seeds, valid_w, qlen, w=64, lmax=1024, lsteps=1000)
     assert got.tolist() == [False, False, True, True, False, True, True]
+
+
+def test_blocks_and_padding_rows_change_no_bit():
+    """``scan_rows_ref`` on the CPU scans rows in blocks and a bucket's
+    trailing copies of one row once: on more rows than a block, ending in
+    a run of equal rows, it equals one whole call of its step loop."""
+    from pindel_tpu_torch.ops import scan
+    rows = scan.BLOCK_ROWS + 70
+    args = [torch.from_numpy(a) for a in aligned_case(11, 256, 128, rows)]
+    for a in args:
+        a[rows - 50:] = a[rows - 50]
+    kw = dict(w=256, lmax=128, mpm=3, lsteps=100)
+    assert scan._trailing_copies(*args) == 49
+    got = scan_rows_ref(*args, **kw)
+    want = scan._scan_block(*args, **kw)
+    for g, x in zip(got, want):
+        assert torch.equal(g, x)
+    # no trailing copies: every row scanned
+    args[0][-1, 0] = (int(args[0][-2, 0]) + 1) % 5
+    assert scan._trailing_copies(*args) == 0
+    for g, x in zip(scan_rows_ref(*args, **kw), scan._scan_block(*args, **kw)):
+        assert torch.equal(g, x)
