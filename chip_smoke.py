@@ -11,11 +11,13 @@ Phases, in order; any failure exits non-zero:
    and no jax (checked again at the end);
 1. environment: torch, CUDA and nvcc versions, the card's name and power
    limit, the host's CPU model and core count;
-2. build: the CUDA scan kernel (csrc/scan.cu), the shard kernel of the
-   window-parallel search (csrc/sharded_search.cu) and, where its source is
-   at hand (``--parent-kernel``, or ``git show`` of PARENT_REV), the shard
-   kernel it replaced, from the checkout's sources, one nvcc for each,
-   started together;
+2. build: the CUDA scan kernel (csrc/scan.cu), the fused close/far kernels
+   (csrc/fused_search.cu; both include csrc/scan_walk.cuh), the shard
+   kernel of the window-parallel search (csrc/sharded_search.cu) and, where
+   its source is at hand (``--parent-kernel``, or ``git show`` of
+   PARENT_REV), the shard kernel it replaced, from the checkout's sources,
+   one nvcc for each, started together, with ptxas's registers, shared
+   memory and spills;
 3. kernel against its plain PyTorch version, both on the card, bit for bit,
    on random cases and the extremes (w = 32768, 65536 and 98304, lmax =
    1024), then on rows built for each branch of the kernel
@@ -51,28 +53,38 @@ Phases, in order; any failure exits non-zero:
 5. scene 1 of bench.py at full size (50,000 reads over a 6 Mb chromosome,
    -T 4) and 6. scene 2 (BAM input with a BreakDancer calls file: 12,000
    read pairs over a 2 Mb chromosome, -T 4), each: a first run that
-   records every scan call the main path makes, a run with the plain scan
-   in place of the kernel, then three timed runs whose reports must be
-   byte-identical to the plain run's (scene 2's also to the reference's
-   sha256 digests in pindel_tpu_torch/testing/scene2_digests.json), with
-   the median wall time, rate, fallback ratio, launches and phase timers;
-   then every recorded scan call is held against the plain version, its
-   rows are classed by seed count (the kernel walks only the seeded lanes
-   of a row with two or more seeds, every lane of the others), each shape
-   is timed, and each call's kernel time is split between the two
-   branches' rows;
-6b. the whole device calls around the scan: ``_close_kernel`` (K2),
-   ``_far_kernel`` (K3) and ``_far_win_kernel`` (K4) at the largest chunk
-   each scene gives them, timed with CUDA events, beside the time of the
-   scan calls they make (K1's share);
+   records every search call the main path makes (K2, K3 and K4, and
+   K4's scan calls), a run with the plain versions in place of the
+   kernels (the plain scan, and K2/K3's ``_ref`` bodies over it), then
+   three timed runs whose reports must be byte-identical to the plain
+   run's (scene 2's also to the reference's sha256 digests in
+   pindel_tpu_torch/testing/scene2_digests.json), with the median wall
+   time, rate, fallback ratio, launches per kernel (``pt_close`` and
+   ``pt_far`` must launch) and phase timers; then K1 at every recorded
+   call's shapes (K4's scan calls, and the scan calls the torch
+   composition K2/K3 replaced makes for each recorded K2/K3 call) is held
+   against the plain version, its rows are classed by seed count (the
+   kernel walks only the seeded lanes of a row with two or more seeds,
+   every lane of the others), each shape is timed, and each call's kernel
+   time is split between the two branches' rows;
+6b. ``pt_close``/``pt_far`` (K2/K3, csrc/fused_search.cu) bit-equal to the
+   plain versions (``_close_kernel_ref``/``_far_kernel_ref`` over the plain
+   scan) at every K2/K3 call phases 5 and 6 recorded and on every case of
+   testing/fused_cases.py; the largest call of each scene timed in turns
+   with the composition it replaced (kernel, composition, composition,
+   kernel; CUDA events) and once as the plain version, beside its bound
+   (``measure.fused_bound``, with the earlier count); K4 whole at its
+   largest call beside the time of the scan calls it makes;
 7. scenes 1 and 2 with ``--backend mesh`` (the data-parallel backend,
    parallel/mesh_fused.py), over all visible cards (the CLI) and over
    ``["cuda:0", "cuda:0"]`` (two shards on one card, through
    ``run_files``): for each device list a first run that records every
-   shard's scan calls, each then held against the plain version on the
-   card it ran on and each shard shape timed; then three timed runs of
-   each list in turns with three fused runs (fused, mesh, mesh, then the
-   reverse), every listed card launching the kernel, reports
+   shard's search calls (K1 at their shapes held against the plain version
+   on the card it ran on, each shard shape timed; each K2/K3 shard call's
+   fused kernel held against the composition over those K1 calls); then
+   three timed runs of each list in turns with three fused runs (fused,
+   mesh, mesh, then the reverse), every listed card launching
+   ``pt_close``/``pt_far``, reports
    byte-identical to the kernel runs of 5 and 6 (scene 2's also to the
    digests), with the median wall time, rate, scan launches per card and
    phase timers of each;
@@ -121,11 +133,11 @@ Phases, in order; any failure exits non-zero:
 11. the port's measurement tools, each in a fresh interpreter:
    ``python -m pindel_tpu_torch.bench --runs 2`` (two timed runs a scene,
    not five: phases 5, 6 and 12 run its scenes too), ``pindel_tpu_torch.tools.
-   kernel_bench``, ``profile_bench --scene 1 --runs 2`` and
+   kernel_bench --per-round``, ``profile_bench --scene 1 --runs 2`` and
    ``multihost_bench --hosts 2``: each exits 0 with ``"correct": true``,
    its rates and times positive, the device-busy share in (0, 1], the
-   bench's and the profile's scan launches equal to phases 5 and 6, and
-   each tool's build and first-use times logged; each tool's JSON line is
+   bench's and the profile's search kernel launches equal to phases 5 and
+   6, and each tool's build and first-use times logged; each tool's JSON line is
    printed on a line of its own.  The bench also runs scene 3 (its
    ``scene3_*`` keys: a positive rate, three windows, fallback at most
    1%), and ``profile_bench --scene 3 --runs 1`` traces one run of it
@@ -134,16 +146,16 @@ Phases, in order; any failure exits non-zero:
 12. scene 3 (testing/scenes.py:build_scene3: about 90,750 BAM read pairs
    with BreakDancer calls over 15 Mb, three 5 Mb windows, in the shape of
    the reference pindel's colousingbd15 run) once through the CLI on the
-   card: every scan call of the run recorded and held against the plain
+   card: K1 at every recorded call's shapes (as in 5) held against the plain
    version (max_abs_err 0), each shape timed; the reports equal to the
    reference's digests (testing/scene3_digests.json); the bench's gate
    (``pindel_tpu_torch.bench.problems``: digests, a non-empty ``_D``,
-   fallback at most 1%, three windows, the scan kernel launched and
+   fallback at most 1%, three windows, the search kernels launched and
    ``_far_win_kernel`` rows above 0); the windows, K4 rows, legacy rows,
-   shard kernel launches, scan launches and peak card memory printed,
-   with each window's reads and times; then ``_close_kernel``,
-   ``_far_kernel`` and ``_far_win_kernel`` whole at scene 3's largest
-   chunk of each, as in 6b.
+   shard kernel launches, search kernel launches and peak card memory
+   printed, with each window's reads and times; then every K2/K3 call of
+   the run held against the plain versions and the largest of each, and
+   K4, timed as in 6b.
 
 The script imports torch, numpy and pindel_tpu_torch, and no jax.
 ``--profile-dir`` also traces one run of each full-size scene with
@@ -167,8 +179,8 @@ import numpy as np
 import torch
 
 from pindel_tpu_torch.tools.measure import (PEAK_BYTES, PEAK_INT32_OPS,
-                                            card_line, row_classes,
-                                            scan_bound)
+                                            card_line, fused_bound,
+                                            row_classes, scan_bound)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 # the commit whose shard kernel (csrc/sharded_search.cu) the redesign
@@ -217,7 +229,8 @@ SCAN_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
 # limit in seconds.  The bench repeats scenes that phases 5, 6 and 12 run,
 # so it takes two timed runs of each here (its default is five)
 TOOLS = [("bench", "pindel_tpu_torch.bench", ["--runs", "2"]),
-         ("kernel_bench", "pindel_tpu_torch.tools.kernel_bench", []),
+         ("kernel_bench", "pindel_tpu_torch.tools.kernel_bench",
+          ["--per-round"]),
          ("profile_bench", "pindel_tpu_torch.tools.profile_bench",
           ["--scene", "1", "--runs", "2"]),
          ("profile_bench_scene3", "pindel_tpu_torch.tools.profile_bench",
@@ -617,8 +630,9 @@ def run_tool(name: str, module: str, argv, card: str) -> dict:
 
 def check_tools(tools, launches1: int, launches2: int) -> None:
     """Phase 11's checks of the tools' lines: rates and times positive,
-    the busy share in (0, 1], scan launches equal to phases 5 and 6, and
-    scene 3's keys (its launches are held to phase 12's there)."""
+    the busy share in (0, 1], search kernel launches (the scan's and the
+    fused kernels') equal to phases 5 and 6, and scene 3's keys (its
+    launches are held to phase 12's there)."""
     b = tools["bench"]
     times = b["runs"] + b["scene2_runs"] + b["scene3_runs"]
     if not (b["value"] > 0 and b["scene2_value"] > 0
@@ -632,11 +646,15 @@ def check_tools(tools, launches1: int, launches2: int) -> None:
         fail(f"bench: scene 3 keys {s3}")
     if {k: b["launches"][k] for k in ("scene1", "scene2")} != {
             "scene1": launches1, "scene2": launches2}:
-        fail(f"bench: scan launches {b['launches']}, phases 5 and 6 "
+        fail(f"bench: search kernel launches {b['launches']}, phases 5 and 6 "
              f"{launches1} and {launches2}")
     for call, c in tools["kernel_bench"]["calls"].items():
+        # K2 and K3: one fused launch, the composition timed beside it;
+        # K4: its scan launches
+        fused = c["parent_ms"] is not None
         if not (c["ms"] > 0 and c["k1_ms"] > 0 and c["bound_ms"] > 0
-                and c["launches"] == c["k1_calls"] > 0):
+                and c["launches"] == (1 if fused else c["k1_calls"]) > 0
+                and (not fused or c["parent_ms"] > 0)):
             fail(f"kernel_bench {call}: {c}")
     for name in ("profile_bench", "profile_bench_scene3"):
         p = tools[name]
@@ -646,7 +664,7 @@ def check_tools(tools, launches1: int, launches2: int) -> None:
                  f"{p['device_s']} s, walls {p['runs']}")
     p = tools["profile_bench"]
     if p["launches"] != launches1:
-        fail(f"profile_bench: scan launches {p['launches']}, phase 5 "
+        fail(f"profile_bench: search kernel launches {p['launches']}, phase 5 "
              f"{launches1}")
     m = tools["multihost_bench"]
     workers = m["ranks"][1:]
@@ -656,7 +674,8 @@ def check_tools(tools, launches1: int, launches2: int) -> None:
     log(f"phase 11: bench {b['value']:.1f} reads/s (scene 1), "
         f"{b['scene2_value']:.1f} read pairs/s (scene 2), "
         f"{b['scene3_value']:.1f} read pairs/s (scene 3, walls "
-        f"{b['scene3_runs']}), scan launches {b['launches']}, scenes 1 "
+        f"{b['scene3_runs']}), search kernel launches {b['launches']}, "
+        f"scenes 1 "
         f"and 2 equal to phases 5 and 6; profile busy share "
         f"{p['busy_share']:.4%} (scene 1), "
         f"{tools['profile_bench_scene3']['busy_share']:.4%} (scene 3); "
@@ -670,7 +689,8 @@ def tool_summary(tools) -> dict:
         bench=dict(launches=b["launches"], value=b["value"],
                    scene2_value=b["scene2_value"],
                    scene3_value=b["scene3_value"]),
-        kernel_bench={k: {x: c[x] for x in ("ms", "k1_ms", "bound_ms",
+        kernel_bench={k: {x: c[x] for x in ("ms", "parent_ms", "k1_ms",
+                                            "bound_ms", "earlier_bound_ms",
                                             "launches")}
                       for k, c in tools["kernel_bench"]["calls"].items()},
         profile_bench={name: dict(busy_share=tools[name]["busy_share"],
@@ -696,10 +716,12 @@ def main() -> int:
     from pindel_tpu_torch import native
     from pindel_tpu_torch.__main__ import build_parser, settings_from_args
     from pindel_tpu_torch.__main__ import main as port_main
-    from pindel_tpu_torch.ops import (engine_fused, engine_jax, scan_cuda,
-                                      sharded_search_cuda)
+    from pindel_tpu_torch.ops import (engine_fused, engine_jax, fused_cuda,
+                                      scan_cuda, sharded_search_cuda)
     from pindel_tpu_torch.ops import sharded_search as sss
     from pindel_tpu_torch.ops.scan import scan_rows_ref
+    from pindel_tpu_torch.testing.fused_cases import CASES as FUSED_CASES
+    from pindel_tpu_torch.testing.fused_cases import fused_case
     from pindel_tpu_torch.testing.lane_cases import (dead_level_case,
                                                      lane_case)
     from pindel_tpu_torch.testing.scan_cases import (BUCKET_LMAXES,
@@ -750,7 +772,8 @@ def main() -> int:
             return scan_cuda.compile_library(parent_src, parent_lib, force,
                                              ptxas_info)
 
-    modules = [("scan", scan_cuda), ("shard", sharded_search_cuda)]
+    modules = [("scan", scan_cuda), ("fused", fused_cuda),
+               ("shard", sharded_search_cuda)]
     if parent_src:
         modules.append(("parent shard", ParentBuild))
     with concurrent.futures.ThreadPoolExecutor(len(modules)) as pool:
@@ -1023,7 +1046,7 @@ def main() -> int:
 
     def check_run(label, launches, device_run=True):
         if device_run and launches == 0:
-            fail(f"{label}: the scan kernel never launched")
+            fail(f"{label}: the search kernels never launched")
         if device_run and g_fallback.ratio() > MAX_FALLBACK:
             fail(f"{label}: fallback ratio {g_fallback.ratio()}")
 
@@ -1036,28 +1059,87 @@ def main() -> int:
             fail(f"{label}: reports differ from numpy: {diff}")
 
     def reset_counts():
-        scan_cuda.LAUNCHES = 0
-        scan_cuda.LAUNCHES_BY_DEVICE.clear()
+        fused_cuda.reset_launches()     # the scan's counts and the fused's
         sharded_search_cuda.LAUNCHES = 0
         sharded_search_cuda.LAUNCHES_BY_DEVICE.clear()
         engine_fused.FAR_WIN_ROWS = 0
         engine_jax.LEGACY_ROWS = 0
 
+    FUSED = ("_close_kernel", "_far_kernel", "_far_win_kernel")
+    fused_kernels = {name: getattr(engine_fused, name) for name in FUSED}
+    PLAIN = {"_close_kernel": engine_fused._close_kernel_ref,
+             "_far_kernel": engine_fused._far_kernel_ref}
+
     def recorded(run):
-        """``run()`` with every scan call of the main path recorded (on
-        each shard's own card); returns its result and the calls."""
-        calls = []
+        """``run()`` with every search call of the main path recorded (on
+        each shard's own card): the fused calls (K2, K3, K4) as (name,
+        chromcat, payload, maxmm, static) and the scan calls K4 makes.
+        Returns its result, K4's scan calls and the fused calls; K1's calls
+        at the main path's shapes are K4's and, for each K2/K3 call, those
+        of the composition it replaced (``composition_calls``)."""
+        scans, fused = [], []
+        kernel_scan = engine_fused.scan_rows
+        real = {name: getattr(engine_fused, name) for name in FUSED}
+
+        def recording(*a, **kw):
+            scans.append(([x.clone() for x in a], dict(kw)))
+            return kernel_scan(*a, **kw)
+
+        def recording_call(name):
+            def call(chromcat, payload, maxmm, **static):
+                fused.append((name, chromcat, payload.clone(), maxmm,
+                              dict(static)))
+                return real[name](chromcat, payload, maxmm, **static)
+            return call
+
+        engine_fused.scan_rows = recording
+        for name in FUSED:
+            setattr(engine_fused, name, recording_call(name))
+        try:
+            result = run()
+        finally:
+            engine_fused.scan_rows = kernel_scan
+            for name, fn in real.items():
+                setattr(engine_fused, name, fn)
+        return result, scans, fused
+
+    def composition_calls(fused):
+        """The scan calls the torch composition (``_close_kernel_ref`` /
+        ``_far_kernel_ref`` over K1) makes for each recorded K2/K3 call,
+        on its card."""
+        out = []
         kernel_scan = engine_fused.scan_rows
 
         def recording(*a, **kw):
-            calls.append(([x.clone() for x in a], dict(kw)))
+            out.append(([x.clone() for x in a], dict(kw)))
             return kernel_scan(*a, **kw)
 
         engine_fused.scan_rows = recording
         try:
-            return run(), calls
+            with torch.inference_mode():
+                for name, chromcat, payload, maxmm, static in fused:
+                    if name in PLAIN:
+                        with torch.cuda.device(payload.device):
+                            PLAIN[name](chromcat, payload, maxmm, **static)
         finally:
             engine_fused.scan_rows = kernel_scan
+        return out
+
+    def plain_call(name, chromcat, payload, maxmm, static):
+        """The plain version of a K2/K3 call: its ``_ref`` body over the
+        plain scan, pure PyTorch on the card."""
+        kernel_scan = engine_fused.scan_rows
+        engine_fused.scan_rows = scan_rows_ref
+        try:
+            return PLAIN[name](chromcat, payload, maxmm, **static)
+        finally:
+            engine_fused.scan_rows = kernel_scan
+
+    def launch_counts():
+        """The search kernels' launches since reset_counts()."""
+        return dict(scan=scan_cuda.LAUNCHES,
+                    close=fused_cuda.LAUNCHES_BY_KERNEL["close"],
+                    far=fused_cuda.LAUNCHES_BY_KERNEL["far"])
 
     def check_calls(label, calls, split=False):
         """Every recorded scan call against the plain version on the card
@@ -1145,23 +1227,32 @@ def main() -> int:
     def full_scene(label, argv_of, n, unit, check_reports):
         """5/6: record, plain-scan, timed and per-call phases of one
         full-size scene; returns the median run and the scan checks."""
-        # a. first run (cold): record every scan call of the main path
-        first_s, calls = recorded(lambda: run_cli(port_main, argv_of("rec")))
-        # b. the plain scan in the kernel's place: the reference reports
+        # a. first run (cold): record every search call of the main path
+        first_s, k4_calls, fused = recorded(
+            lambda: run_cli(port_main, argv_of("rec")))
+        # b. the plain versions in the kernels' place (the plain scan, and
+        # K2/K3's _ref bodies over it): the reference reports
         kernel_scan = engine_fused.scan_rows
         engine_fused.scan_rows = scan_rows_ref
-        before = scan_cuda.LAUNCHES
-        plain_s = run_cli(port_main, argv_of("plain"))
-        engine_fused.scan_rows = kernel_scan
-        if scan_cuda.LAUNCHES != before:
-            fail(f"{label}: the plain-scan run launched the kernel")
+        engine_fused._close_kernel = PLAIN["_close_kernel"]
+        engine_fused._far_kernel = PLAIN["_far_kernel"]
+        before = fused_cuda.search_launches()
+        try:
+            plain_s = run_cli(port_main, argv_of("plain"))
+        finally:
+            engine_fused.scan_rows = kernel_scan
+            engine_fused._close_kernel = fused_kernels["_close_kernel"]
+            engine_fused._far_kernel = fused_kernels["_far_kernel"]
+        if fused_cuda.search_launches() != before:
+            fail(f"{label}: the plain run launched a kernel")
         want = reports(prefix_of(argv_of("plain")))
         check_reports(want)
         if reports(prefix_of(argv_of("rec"))) != want:
             fail(f"{label}: the first kernel run's reports differ from the "
-                 "plain-scan run's")
-        log(f"{label}: first run {first_s:.3f} s ({len(calls)} scan calls "
-            f"recorded), plain-scan run {plain_s:.3f} s  [{card}]")
+                 "plain run's")
+        log(f"{label}: first run {first_s:.3f} s ({len(fused)} K2/K3/K4 "
+            f"calls and K4's {len(k4_calls)} scan calls recorded), plain "
+            f"run {plain_s:.3f} s  [{card}]")
 
         # c. timed runs through the kernel
         runs = []
@@ -1171,19 +1262,25 @@ def main() -> int:
             argv = argv_of(f"run{i}")
             wall = run_cli(port_main, argv)
             runs.append(dict(wall=wall, launches=scan_cuda.LAUNCHES,
+                             search=fused_cuda.search_launches(),
+                             kernels=launch_counts(),
                              far_win_rows=engine_fused.FAR_WIN_ROWS,
                              legacy_rows=engine_jax.LEGACY_ROWS,
                              phases=g_timer.items(),
                              fallback=(g_fallback.fallback, g_fallback.total,
                                        g_fallback.ratio()),
                              peak=torch.cuda.max_memory_allocated()))
-            check_run(f"{label} run {i}", scan_cuda.LAUNCHES)
+            check_run(f"{label} run {i}", fused_cuda.search_launches())
+            if not (fused_cuda.LAUNCHES_BY_KERNEL["close"]
+                    and fused_cuda.LAUNCHES_BY_KERNEL["far"]):
+                fail(f"{label} run {i}: pt_close/pt_far launches "
+                     f"{dict(fused_cuda.LAUNCHES_BY_KERNEL)}")
             if reports(prefix_of(argv)) != want:
-                fail(f"{label} run {i}: reports differ from the plain-scan "
+                fail(f"{label} run {i}: reports differ from the plain "
                      "run's")
             log(f"{label} run {i}: wall {wall:.3f} s, {n / wall:.1f} "
-                f"{unit}/s, scan launches {scan_cuda.LAUNCHES}  [{card}]")
-        for key in ("launches", "far_win_rows", "legacy_rows"):
+                f"{unit}/s, launches {launch_counts()}  [{card}]")
+        for key in ("search", "far_win_rows", "legacy_rows"):
             if len({r[key] for r in runs}) != 1:
                 fail(f"{label}: {key} differ between runs "
                      f"{[r[key] for r in runs]}")
@@ -1192,17 +1289,19 @@ def main() -> int:
         fb, total, ratio = med["fallback"]
         log(f"{label}: median wall {med['wall']:.3f} s of {TIMED_RUNS} "
             f"({n / med['wall']:.1f} {unit}/s), reports byte-identical to "
-            f"the plain-scan run, fallback {fb}/{total} = {ratio:.6f}, scan "
-            f"launches {med['launches']}, _far_win_kernel rows "
+            f"the plain run, fallback {fb}/{total} = {ratio:.6f}, "
+            f"launches {med['kernels']}, _far_win_kernel rows "
             f"{med['far_win_rows']}, legacy rows {med['legacy_rows']}, peak "
             f"device memory {med['peak'] / 2 ** 20:.1f} MiB  [{card}]")
         for pname, sec in sorted(med["phases"].items(),
                                  key=lambda kv: -kv[1]):
             log(f"  phase {pname:<52s} {sec:9.3f} s  [{card}]")
 
-        # d. every recorded main-path call: kernel vs plain, time per shape
-        scan = check_calls(label, calls, split=True)
-        del calls
+        # d. K1 at every recorded call's shapes: kernel vs plain, time per
+        # shape
+        scan = check_calls(label, k4_calls + composition_calls(fused),
+                           split=True)
+        del k4_calls
         torch.cuda.empty_cache()
 
         if args.profile_dir:
@@ -1220,9 +1319,11 @@ def main() -> int:
                 fh.write(table)
             log(f"profile: {path} (wall under profiler {prof_wall:.3f} s)")
         return dict({k: scan[k] for k in SCAN_KEYS},
-                    launches=med["launches"],
+                    launches=med["launches"], search=med["search"],
+                    close_launches=med["kernels"]["close"],
+                    far_launches=med["kernels"]["far"],
                     far_win_rows=med["far_win_rows"], wall=med["wall"],
-                    want=want)
+                    want=want, fused=fused)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         # ---- 4. the CLI on small text scenes vs the golden NumPy reports
@@ -1234,14 +1335,16 @@ def main() -> int:
             reset_counts()
             run_cli(port_main, ["-f", fa, "-p", reads_txt,
                                 "-o", os.path.join(d, "port"), "-s", *flags])
-            launches = scan_cuda.LAUNCHES
+            launches = launch_counts()
             port = reports(os.path.join(d, "port"))
             same_reports(f"scene {scene}", golden[scene], port)
             if not port["CloseEndMapped"]:
                 fail(f"scene {scene}: no close end mapped")
-            check_run(f"scene {scene}", launches)
+            check_run(f"scene {scene}", fused_cuda.search_launches())
+            if not launches["close"]:
+                fail(f"scene {scene}: pt_close never launched")
             log(f"small scene {scene} {flags}: {n} reads, {len(port)} "
-                f"reports byte-identical to numpy, launches={launches}, "
+                f"reports byte-identical to numpy, launches {launches}, "
                 f"fallback {g_fallback.fallback}/{g_fallback.total}")
 
         # ---- 4b. the CLI on small BAM scenes vs the golden NumPy reports
@@ -1254,13 +1357,13 @@ def main() -> int:
             port = reports(os.path.join(d, "port"))
             same_reports(f"BAM scene {scene}", golden[scene], port)
             # -g genotypes on the host: no device search to check
-            check_run(f"BAM scene {scene}", scan_cuda.LAUNCHES,
+            check_run(f"BAM scene {scene}", fused_cuda.search_launches(),
                       device_run="-g" not in spec.flags)
             if spec.far_win and engine_fused.FAR_WIN_ROWS == 0:
                 fail(f"BAM scene {scene}: _far_win_kernel searched no read")
             log(f"small BAM scene {scene} {list(spec.flags)}: {len(port)} "
-                f"reports byte-identical to numpy, launches="
-                f"{scan_cuda.LAUNCHES}, _far_win_kernel rows "
+                f"reports byte-identical to numpy, launches "
+                f"{launch_counts()}, _far_win_kernel rows "
                 f"{engine_fused.FAR_WIN_ROWS}, legacy rows "
                 f"{engine_jax.LEGACY_ROWS}, fallback "
                 f"{g_fallback.fallback}/{g_fallback.total}")
@@ -1310,7 +1413,7 @@ def main() -> int:
 
         def scene2_reports(want):
             if digests(want) != want_digests:
-                fail("scene 2: the plain-scan run's reports differ from the "
+                fail("scene 2: the plain run's reports differ from the "
                      "reference's digests")
             if b"ChrID" not in want.get("D", b""):
                 fail("scene 2: no deletion reported")
@@ -1324,68 +1427,133 @@ def main() -> int:
             fail("scene 2: _far_win_kernel searched no read")
         max_err = max(max_err, scene2["max_abs_err"])
 
-        # ---- 6b. K2, K3 and K4 whole: the device time of each call at the
-        # largest chunk of each scene, beside the scan calls it makes
-        def whole_calls(label, argv, want):
-            calls = []
-            real_launch = engine_fused.TorchFusedBackend._launch
-
-            def recording(self, kernel, payload, static):
-                calls.append((kernel, self.state.chromcat,
-                              torch.from_numpy(payload).to(self.device),
-                              self.state.maxmm, dict(static)))
-                return real_launch(self, kernel, payload, static)
-
-            engine_fused.TorchFusedBackend._launch = recording
-            try:
-                run_cli(port_main, argv)
-            finally:
-                engine_fused.TorchFusedBackend._launch = real_launch
-            if reports(prefix_of(argv)) != want:
-                fail(f"{label}: the recorded run's reports differ")
+        # ---- 6b. K2 and K3 on the card: pt_close/pt_far bit-equal to the
+        # plain versions at every K2/K3 call of scenes 1 and 2 (phases 5
+        # and 6 recorded them; scene 3's in phase 12) and on the edge cases
+        # of testing/fused_cases.py; the largest call of each timed in turns
+        # with the composition it replaced, beside its bound; K4 whole at
+        # its largest call, beside the scan calls it makes
+        def check_fused(label, fused):
+            err_all = 0
             out = {}
-            for name in ("_close_kernel", "_far_kernel", "_far_win_kernel"):
-                mine = [c for c in calls if c[0].__name__ == name]
-                if not mine:
-                    continue
-                kernel, chromcat, payload, maxmm, static = max(
-                    mine, key=lambda c: c[2].shape[0])
+            with torch.inference_mode():
+                for name, chromcat, payload, maxmm, static in fused:
+                    if name not in PLAIN:
+                        continue
+                    with torch.cuda.device(payload.device):
+                        got = fused_kernels[name](chromcat, payload, maxmm,
+                                                  **static)
+                        want = plain_call(name, chromcat, payload, maxmm,
+                                          static)
+                        err = int((got.long() - want.long()).abs().max()
+                                  ) if got.numel() else 0
+                    err_all = max(err_all, err)
+                    log(f"{label} {name} call, {payload.shape[0]} reads: "
+                        f"kernel vs plain max_abs_err={err}")
+                if err_all:
+                    fail(f"{label}: pt_close/pt_far disagree with the plain "
+                         f"versions (max {err_all})")
+                for name in FUSED:
+                    mine = [c for c in fused if c[0] == name]
+                    if not mine:
+                        continue
+                    _n, chromcat, payload, maxmm, static = max(
+                        mine, key=lambda c: c[2].shape[0])
 
-                def call():
-                    return kernel(chromcat, payload, maxmm, **static)
+                    def call():
+                        return fused_kernels[name](chromcat, payload, maxmm,
+                                                   **static)
 
-                scans = []
-                real_scan = engine_fused.scan_rows
+                    row = dict(rows=int(payload.shape[0]), calls=len(mine))
+                    if name in PLAIN:
+                        def comp():
+                            return PLAIN[name](chromcat, payload, maxmm,
+                                               **static)
 
-                def recording_scan(*a, **kw):
-                    scans.append((a, kw))
-                    return real_scan(*a, **kw)
+                        # in turns: kernel, composition, composition, kernel
+                        t = [time_ms(f, 5) for f in (call, comp, comp, call)]
+                        plain = time_ms(lambda: plain_call(
+                            name, chromcat, payload, maxmm, static), 1)
+                        b = fused_bound(name, chromcat, payload, maxmm,
+                                        static)
+                        row.update(ms=min(t[0], t[3]),
+                                   parent_ms=min(t[1], t[2]), plain_ms=plain,
+                                   bound_ms=b["bound_ms"],
+                                   bound_by=b["bound_by"],
+                                   earlier_bound_ms=b["composition_bound_ms"],
+                                   rows_scanned=b["rows_scanned"],
+                                   rows_all=b["rows_all"],
+                                   max_abs_err=err_all)
+                        log(f"{label} {name}: largest of {len(mine)} calls, "
+                            f"{payload.shape[0]} reads: kernel "
+                            f"{row['ms']:.4f} ms ({t[0]:.4f}, {t[3]:.4f}), "
+                            f"the composition it replaced "
+                            f"{row['parent_ms']:.4f} ms ({t[1]:.4f}, "
+                            f"{t[2]:.4f}), {row['parent_ms'] / row['ms']:.2f}"
+                            f"x; plain {plain:.3f} ms; bound "
+                            f"{row['bound_ms']:.4f} ms ({row['bound_by']}, "
+                            f"{row['rows_scanned']} of {row['rows_all']} scan "
+                            f"rows), {row['bound_ms'] / row['ms']:.1%} of "
+                            f"it; the earlier count "
+                            f"{row['earlier_bound_ms']:.4f} ms  [{card}]")
+                    else:
+                        scans = []
+                        real_scan = engine_fused.scan_rows
 
-                with torch.inference_mode():
-                    ms = time_ms(call, 5)
-                    engine_fused.scan_rows = recording_scan
-                    try:
-                        call()
-                    finally:
-                        engine_fused.scan_rows = real_scan
-                    scan_ms = sum(time_ms(
-                        lambda a=a, kw=kw: scan_cuda.scan_rows_cuda(*a, **kw),
-                        5) for a, kw in scans)
-                out[name] = dict(rows=int(payload.shape[0]), calls=len(mine),
-                                 ms=ms, scan_ms=scan_ms, scans=len(scans))
-                log(f"{label} {name}: largest of {len(mine)} calls, "
-                    f"{payload.shape[0]} rows: whole call {ms:.4f} ms "
-                    f"(CUDA events around it), its {len(scans)} scan calls "
-                    f"{scan_ms:.4f} ms ({scan_ms / ms:.1%})  [{card}]")
-                del scans
-            del calls
+                        def recording_scan(*a, **kw):
+                            scans.append((a, kw))
+                            return real_scan(*a, **kw)
+
+                        ms = time_ms(call, 5)
+                        engine_fused.scan_rows = recording_scan
+                        try:
+                            call()
+                        finally:
+                            engine_fused.scan_rows = real_scan
+                        scan_ms = sum(time_ms(
+                            lambda a=a, kw=kw: scan_cuda.scan_rows_cuda(
+                                *a, **kw), 5) for a, kw in scans)
+                        row.update(ms=ms, scan_ms=scan_ms, scans=len(scans))
+                        log(f"{label} {name}: largest of {len(mine)} calls, "
+                            f"{payload.shape[0]} rows: whole call {ms:.4f} ms "
+                            f"(CUDA events around it), its {len(scans)} scan "
+                            f"calls {scan_ms:.4f} ms ({scan_ms / ms:.1%})  "
+                            f"[{card}]")
+                        del scans
+                    out[name] = row
             torch.cuda.empty_cache()
             return out
 
-        whole = {"scene1": whole_calls("scene 1", argv1("whole"),
-                                       scene1["want"]),
-                 "scene2": whole_calls("scene 2", argv2("whole"),
-                                       scene2["want"])}
+        whole = {"scene1": check_fused("scene 1", scene1.pop("fused")),
+                 "scene2": check_fused("scene 2", scene2.pop("fused"))}
+        edge_err = 0
+        with torch.inference_mode():
+            for case in FUSED_CASES:
+                name, chrom_c, maxmm_c, payload_c, static = fused_case(case)
+                args_c = (engine_fused._chrom_cat(
+                    torch.from_numpy(chrom_c).to(dev)),
+                    torch.from_numpy(payload_c).to(dev),
+                    torch.from_numpy(maxmm_c.copy()).to(dev))
+                got = fused_kernels[name](*args_c, **static)
+                want = plain_call(name, *args_c, static)
+                err = int((got.long() - want.long()).abs().max())
+                edge_err = max(edge_err, err)
+                log(f"edge case {case} ({name}, {payload_c.shape[0]} reads): "
+                    f"kernel vs plain max_abs_err={err}")
+        if edge_err:
+            fail(f"pt_close/pt_far disagree with the plain versions on the "
+                 f"edge cases (max {edge_err})")
+        # engine_fused._Download allocates a pinned host buffer per call:
+        # its host time at the largest K2 output (PyTorch's caching host
+        # allocator hands back freed blocks)
+        rows = max(w["_close_kernel"]["rows"] for w in whole.values())
+        t0 = time.perf_counter()
+        for _ in range(200):
+            torch.empty((rows, 6), dtype=torch.int32, pin_memory=True)
+        pin_us = (time.perf_counter() - t0) / 200 * 1e6
+        log(f"_Download: a pinned [{rows}, 6] int32 buffer takes "
+            f"{pin_us:.1f} us of host time to allocate, after the first  "
+            f"[{card}]")
 
         # ---- 7. scenes 1 and 2 through the data-parallel mesh backend,
         # in turns with the fused backend (fused, mesh..., then reversed)
@@ -1421,22 +1589,40 @@ def main() -> int:
                 ("scene1", "scene 1", argv1, n1, "reads", scene1),
                 ("scene2", "scene 2", argv2, n2, "read pairs", scene2)):
             # a first run of each device list (its warm-up) records every
-            # shard's scan calls, each held against the plain scan on the
-            # card it ran on
+            # shard's search calls: K1's at their shapes each held against
+            # the plain scan on the card it ran on, and each K2/K3 shard
+            # call's fused kernel against the composition over those K1
+            # calls (so, through them, against the plain version)
             for cfg, devices in MESH_LISTS.items():
                 mlabel = f"{label} mesh {cfg}"
                 argv = argv_of(f"rec_{cfg}")
-                _, calls = recorded(lambda: run_backend(argv, devices))
+                _, calls, fused = recorded(lambda: run_backend(argv, devices))
+                calls += composition_calls(fused)
                 if reports(prefix_of(argv)) != base["want"]:
                     fail(f"{mlabel} recorded run: reports differ from the "
                          "fused kernel runs'")
-                ran_on = {c[0][0].device.index for c in calls}
+                ran_on = {c[2].device.index for c in fused}
                 if ran_on != cards_of(devices):
-                    fail(f"{mlabel}: scan calls ran on cards "
+                    fail(f"{mlabel}: fused calls ran on cards "
                          f"{sorted(ran_on)}, not {sorted(cards_of(devices))}")
                 mesh_scans[key, cfg] = check_calls(mlabel, calls)
                 max_err = max(max_err, mesh_scans[key, cfg]["max_abs_err"])
-                del calls
+                ferr = 0
+                with torch.inference_mode():
+                    for name, chromcat, payload, maxmm, static in fused:
+                        if name in PLAIN:
+                            with torch.cuda.device(payload.device):
+                                got = fused_kernels[name](
+                                    chromcat, payload, maxmm, **static)
+                                want = PLAIN[name](chromcat, payload, maxmm,
+                                                   **static)
+                                ferr = max(ferr, int(
+                                    (got.long() - want.long()).abs().max()))
+                log(f"{mlabel}: pt_close/pt_far on {len(fused)} shard calls "
+                    f"against the composition: max_abs_err={ferr}")
+                if ferr:
+                    fail(f"{mlabel}: pt_close/pt_far disagree (max {ferr})")
+                del calls, fused
                 torch.cuda.empty_cache()
             runs = {cfg: [] for cfg, _ in configs}
             for i in range(TIMED_RUNS):
@@ -1447,12 +1633,13 @@ def main() -> int:
                     reset_counts()
                     wall = run_backend(argv, devices)
                     launches = scan_cuda.LAUNCHES
+                    kernels = launch_counts()
                     by_card = dict(sorted(
-                        scan_cuda.LAUNCHES_BY_DEVICE.items()))
-                    check_run(mlabel, launches)
+                        fused_cuda.LAUNCHES_BY_DEVICE.items()))
+                    check_run(mlabel, fused_cuda.search_launches())
                     if set(by_card) != cards_of(devices):
-                        fail(f"{mlabel}: scan launches by card {by_card}, "
-                             f"expected every card of "
+                        fail(f"{mlabel}: pt_close/pt_far launches by card "
+                             f"{by_card}, expected every card of "
                              f"{sorted(cards_of(devices))}")
                     got = reports(prefix_of(argv))
                     if got != base["want"]:
@@ -1462,11 +1649,11 @@ def main() -> int:
                         fail(f"{mlabel}: reports differ from the "
                              "reference's digests")
                     runs[cfg].append(dict(wall=wall, launches=launches,
-                                           by_card=by_card,
+                                           kernels=kernels, by_card=by_card,
                                            phases=g_timer.items()))
                     log(f"{mlabel}: wall {wall:.3f} s, {n / wall:.1f} "
-                        f"{unit}/s, scan launches {launches} by card "
-                        f"{by_card}  [{card}]")
+                        f"{unit}/s, launches {kernels}, pt_close/pt_far by "
+                        f"card {by_card}  [{card}]")
             fused_med = statistics.median(r["wall"] for r in runs["fused"])
             for cfg, devices in configs:
                 if len({str(r["by_card"]) for r in runs[cfg]}) != 1:
@@ -1476,9 +1663,9 @@ def main() -> int:
                 log(f"{label} {cfg} ({devices}): median wall "
                     f"{med['wall']:.3f} s of {TIMED_RUNS} in turns "
                     f"({n / med['wall']:.1f} {unit}/s), reports "
-                    f"byte-identical to the fused runs of phase 5/6, scan "
-                    f"launches {med['launches']} by card {med['by_card']}  "
-                    f"[{card}]")
+                    f"byte-identical to the fused runs of phase 5/6, "
+                    f"launches {med['kernels']}, pt_close/pt_far by card "
+                    f"{med['by_card']}  [{card}]")
                 top = sorted(med["phases"].items(), key=lambda kv: -kv[1])
                 for pname, sec in top[:8]:
                     log(f"  phase {pname:<52s} {sec:9.3f} s  [{card}]")
@@ -1487,7 +1674,9 @@ def main() -> int:
                     mesh_paths[f"{key}_mesh_{cfg}"] = dict(
                         {k: scan[k] for k in SCAN_KEYS},
                         launches=med["launches"],
-                        launches_by_card={
+                        close_launches=med["kernels"]["close"],
+                        far_launches=med["kernels"]["far"],
+                        fused_launches_by_card={
                             str(k): v for k, v in med["by_card"].items()},
                         wall=med["wall"], fused_wall=fused_med)
 
@@ -1517,7 +1706,9 @@ def main() -> int:
                 return [dict(rank=0, devices=["cuda:0"], windows=None,
                              launches_by_card={
                                  str(k): v for k, v in sorted(
-                                     scan_cuda.LAUNCHES_BY_DEVICE.items())},
+                                     fused_cuda.search_launches_by_device()
+                                     .items())},
+                             launches_by_kernel=launch_counts(),
                              started_s=0.0, ready_s=0.0, first_window_s=None,
                              peak_alloc_mib=None, card_used_mib=None)]
             ranks = [dict(r) for r in multihost.LAST_RANKS]
@@ -1545,14 +1736,20 @@ def main() -> int:
                        f"memory used at its end {r['card_used_mib']:.1f} MiB")
                 wall = f"{r['wall_s']:.3f} s" if "wall_s" in r else "-"
                 log(f"{label} rank {r['rank']}: devices {r['devices']}, "
-                    f"windows {r['windows']}, scan launches by card "
+                    f"windows {r['windows']}, search kernel launches by card "
                     f"{r['launches_by_card']}, wall {wall}, spawn to "
                     f"imports done {r['started_s']:.3f} s, to pipeline ready "
                     f"{r['ready_s']:.3f} s, to first shipped window "
                     f"{first}{mem}  [{card}]")
 
-        def launches_of(ranks):
-            return sum(sum(r["launches_by_card"].values()) for r in ranks)
+        def launches_of(ranks, kernel="scan"):
+            return sum(r["launches_by_kernel"].get(kernel, 0) for r in ranks)
+
+        def counts_of(ranks):
+            """A path's launches per kernel (``launches``: K1's)."""
+            return dict(launches=launches_of(ranks),
+                        close_launches=launches_of(ranks, "close"),
+                        far_launches=launches_of(ranks, "far"))
 
         hosts_paths = {}
         # a. scene 1 at --hosts 2 over both transports, rank 0's scan
@@ -1561,7 +1758,8 @@ def main() -> int:
             label = f"scene 1 --hosts 2 --dist {dist}"
             argv = argv1(f"hosts2_{dist}")
             reset_counts()
-            wall, calls = recorded(lambda: run_hosts(argv, 2, dist))
+            wall, calls, fused = recorded(lambda: run_hosts(argv, 2, dist))
+            calls += composition_calls(fused)
             if reports(prefix_of(argv)) != scene1["want"]:
                 fail(f"{label}: reports differ from the kernel runs of "
                      "phase 5")
@@ -1569,15 +1767,15 @@ def main() -> int:
             if not all(r["windows"] for r in ranks):
                 fail(f"{label}: a rank owned no window: {ranks}")
             log(f"{label}: wall {wall:.3f} s, {n1 / wall:.1f} reads/s, "
-                f"reports byte-identical to phase 5, scan launches "
-                f"{launches_of(ranks)}  [{card}]")
+                f"reports byte-identical to phase 5, launches "
+                f"{counts_of(ranks)}  [{card}]")
             log_ranks(label, ranks)
             scan = check_calls(f"{label} rank 0", calls)
             max_err = max(max_err, scan["max_abs_err"])
             del calls
             torch.cuda.empty_cache()
             hosts_paths[f"scene1_hosts2_{dist}"] = dict(
-                {k: scan[k] for k in SCAN_KEYS}, launches=launches_of(ranks),
+                {k: scan[k] for k in SCAN_KEYS}, **counts_of(ranks),
                 launches_by_rank=[r["launches_by_card"] for r in ranks],
                 wall=wall)
 
@@ -1594,10 +1792,10 @@ def main() -> int:
             fail(f"{label}: rank 1 owned windows {ranks[1]['windows']}")
         log(f"{label}: wall {wall:.3f} s, {n2 / wall:.1f} read pairs/s, "
             f"reports byte-identical to phase 6 and the digests, scan "
-            f"launches {launches_of(ranks)}  [{card}]")
+            f"launches {counts_of(ranks)}  [{card}]")
         log_ranks(label, ranks)
         hosts_paths["scene2_hosts2_files"] = dict(
-            launches=launches_of(ranks),
+            **counts_of(ranks),
             launches_by_rank=[r["launches_by_card"] for r in ranks],
             wall=wall)
 
@@ -1623,8 +1821,8 @@ def main() -> int:
                     runs[hosts].append(dict(wall=wall, ranks=ranks,
                                             phases=g_timer.items()))
                     log(f"{hlabel} --dist {dist} run {i}: wall {wall:.3f} s, "
-                        f"{n / wall:.1f} {unit}/s, scan launches "
-                        f"{launches_of(ranks)}  [{card}]")
+                        f"{n / wall:.1f} {unit}/s, launches "
+                        f"{counts_of(ranks)}  [{card}]")
                     log_ranks(f"{hlabel} run {i}", ranks)
             for hosts in counts:
                 walls = [r["wall"] for r in runs[hosts]]
@@ -1632,15 +1830,15 @@ def main() -> int:
                 log(f"{label} {' '.join(flags)} --hosts {hosts} --dist "
                     f"{dist}: median wall {med['wall']:.3f} s of "
                     f"{TIMED_RUNS} in turns ({n / med['wall']:.1f} {unit}/s"
-                    f"), reports equal to --hosts 1, scan launches "
-                    f"{launches_of(med['ranks'])}  [{card}]")
+                    f"), reports equal to --hosts 1, launches "
+                    f"{counts_of(med['ranks'])}  [{card}]")
                 for r in med["ranks"]:
                     phases = r.get("phases") or med["phases"]
                     for pname in HOSTS_PHASES:
                         log(f"  rank {r['rank']} phase {pname:<40s} "
                             f"{phases.get(pname, 0.0):9.3f} s  [{card}]")
                 hosts_paths[f"{key}_timed_hosts{hosts}"] = dict(
-                    launches=launches_of(med["ranks"]), wall=med["wall"])
+                    **counts_of(med["ranks"]), wall=med["wall"])
 
         # ---- 9. the window-parallel search (K9)
         from pindel_tpu_torch.genome import Genome
@@ -1899,8 +2097,8 @@ def main() -> int:
                 run_cli(port_main, argv + ["--backend", name])
                 same_reports(f"--backend {name} scene {scene}",
                              golden[scene], reports(prefix))
-                if scan_cuda.LAUNCHES:
-                    fail(f"--backend {name} scene {scene}: the scan kernel "
+                if fused_cuda.search_launches():
+                    fail(f"--backend {name} scene {scene}: a search kernel "
                          "of another backend launched")
                 if name == "numpy" and (engine_jax.LEGACY_ROWS
                                         or sharded_search_cuda.LAUNCHES):
@@ -1995,8 +2193,8 @@ def main() -> int:
             if engine_jax.PLAIN_ON_CARD:
                 fail(f"{label} --backend jax: the plain _search_kernel ran "
                      f"{engine_jax.PLAIN_ON_CARD} times on the card")
-            if scan_cuda.LAUNCHES:
-                fail(f"{label} --backend jax: the scan kernel launched")
+            if fused_cuda.search_launches():
+                fail(f"{label} --backend jax: a fused-path kernel launched")
             log(f"{label} --backend jax: wall {wall:.3f} s, {n / wall:.1f} "
                 f"{unit}/s, reports byte-identical to the fused runs of "
                 f"phase 5/6{' and the digests' if key == 'scene2' else ''}, "
@@ -2035,7 +2233,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     tools = {name: run_tool(name, module, argv, card)
                for name, module, argv in TOOLS}
-    check_tools(tools, scene1["launches"], scene2["launches"])
+    check_tools(tools, scene1["search"], scene2["search"])
 
     # ---- 12. scene 3 once through the CLI: three windows of BAM pairs with
     # BreakDancer calls, every scan call held against the plain version
@@ -2048,7 +2246,7 @@ def main() -> int:
             f"{time.monotonic() - t0:.1f} s")
         reset_counts()
         engine_jax.PLAIN_ON_CARD = 0
-        run3, calls = recorded(lambda: bench.run(
+        run3, k4_calls, fused3 = recorded(lambda: bench.run(
             scene3_spec, os.path.join(s3, "run"), torch.device("cuda:0")))
         c3 = run3["counters"]
         bad = bench.problems(scene3_spec, [run3], kernel=True)
@@ -2061,7 +2259,9 @@ def main() -> int:
             f"{scene3_spec.n / run3['wall']:.1f} read pairs/s, reports "
             f"equal to the reference's digests, fallback "
             f"{g_fallback.fallback}/{g_fallback.total}, windows {c3['windows']} (visited "
-            f"{c3['windows_visited']}), scan launches {c3['launches']}, "
+            f"{c3['windows_visited']}), search kernel launches "
+            f"{c3['launches']} (scan {c3['scan_launches']}, pt_close/pt_far "
+            f"{c3['fused_launches']}), "
             f"_far_win_kernel rows {c3['far_win_rows']}, legacy rows "
             f"{c3['legacy_rows']}, shard kernel launches "
             f"{c3['shard_launches']}, peak card memory "
@@ -2075,22 +2275,24 @@ def main() -> int:
         for pname, sec in sorted(run3["phases"].items(),
                                  key=lambda kv: -kv[1])[:12]:
             log(f"  phase {pname:<52s} {sec:9.3f} s  [{card}]")
-        scan3 = check_calls("scene 3", calls)
+        scan3 = check_calls("scene 3", k4_calls + composition_calls(fused3))
         max_err = max(max_err, scan3["max_abs_err"])
-        del calls
+        del k4_calls
         torch.cuda.empty_cache()
-        # K2, K3 and K4 whole at scene 3's largest chunk of each, as 6b
-        whole["scene3"] = whole_calls(
-            "scene 3", scene3_spec.argv_of(os.path.join(s3, "whole")),
-            reports(os.path.join(s3, "run")))
+        # K2 and K3 at every call of scene 3 against the plain versions,
+        # the largest of each timed, K4 whole, as 6b
+        whole["scene3"] = check_fused("scene 3", fused3)
+        del fused3
     for name in ("bench", "profile_bench_scene3"):
         got = tools[name]["launches"]
         got = got["scene3"] if name == "bench" else got
         if got != c3["launches"]:
-            fail(f"{name}: scene 3 scan launches {got}, phase 12 "
+            fail(f"{name}: scene 3 search kernel launches {got}, phase 12 "
                  f"{c3['launches']}")
     scene3 = dict({k: scan3[k] for k in SCAN_KEYS},
-                  launches=c3["launches"], wall=run3["wall"],
+                  launches=c3["scan_launches"],
+                  close_launches=c3["close_launches"],
+                  far_launches=c3["far_launches"], wall=run3["wall"],
                   far_win_rows=c3["far_win_rows"],
                   legacy_rows=c3["legacy_rows"],
                   windows=c3["windows"], peak_mib=c3["peak_mib"])
@@ -2102,12 +2304,14 @@ def main() -> int:
         fail(f"the plain _search_kernel ran on the card "
              f"{engine_jax.PLAIN_ON_CARD} times outside phase 3b's "
              "comparisons")
-    paths = {label: {k: v[k] for k in ("launches", *SCAN_KEYS, "wall")}
+    paths = {label: {k: v[k] for k in ("launches", "close_launches",
+                                       "far_launches", *SCAN_KEYS, "wall")}
              for label, v in (("scene1", scene1), ("scene2", scene2))}
     paths["scene3"] = scene3
     paths.update(mesh_paths)
     paths.update(hosts_paths)
-    # K1 at scene 1's largest main-path shape; launches over every path
+    # K1 at scene 1's largest shape (its largest K2 call's, as the
+    # composition calls it); launches over every path (K4's calls)
     kernels = [dict(name="scan_rows", route="cuda",
                     source="pindel_tpu_torch/csrc/scan.cu",
                     replaces="pindel_tpu/ops/pallas_scan.py:76",
@@ -2151,6 +2355,26 @@ def main() -> int:
         plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
         bound_by=top["bound_by"], bound_earlier_ms=top["bound_earlier_ms"],
         library_ms=None, paths=k9_paths))
+    # K2 and K3 at the largest call of each over scenes 1-3 (phases 6b and
+    # 12), timed in turns with the composition they replaced (parent_ms);
+    # launches over every path
+    for kname, short, line in (("_close_kernel", "close", 513),
+                               ("_far_kernel", "far", 626)):
+        rows = {scene: w[kname] for scene, w in whole.items() if kname in w}
+        top = max(rows.values(), key=lambda r: r["rows"])
+        kernels.append(dict(
+            name=f"pt_{short}", route="cuda",
+            source="pindel_tpu_torch/csrc/fused_search.cu",
+            replaces=f"pindel_tpu/ops/engine_fused.py:{line}",
+            launches=sum(v.get(f"{short}_launches", 0)
+                         for v in paths.values()),
+            max_abs_err=max([edge_err] + [r["max_abs_err"]
+                                          for r in rows.values()]),
+            ms=top["ms"], parent_ms=top["parent_ms"],
+            plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
+            bound_by=top["bound_by"], share=top["bound_ms"] / top["ms"],
+            earlier_bound_ms=top["earlier_bound_ms"], library_ms=None,
+            calls=rows))
     log(json.dumps({"kernels": kernels}))
     log(f"chip_smoke: total command time {time.monotonic() - t_start:.1f} s")
     log(card)

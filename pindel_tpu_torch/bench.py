@@ -11,7 +11,7 @@ BreakDancer calls file; ``SCENE3``, about 90,750 BAM read pairs with
 BreakDancer calls over 15 Mb, three 5 Mb windows, in the shape of the
 reference pindel's ``colousingbd15`` run) run through ``python -m
 pindel_tpu_torch --backend fused``.  Scene generation and the builds of
-the scan kernel and the native libraries are set-up; each scene then takes
+the search kernels and the native libraries are set-up; each scene then takes
 one untimed run (its first use), then ``--runs`` timed runs, each wall
 read after ``torch.cuda.synchronize()``.  A scene whose first run fails
 its gate is not timed.
@@ -19,8 +19,9 @@ its gate is not timed.
 The gate: every run's reports must equal the JAX package's reports on the
 same scene, held as sha256 digests (``testing/scene{1,2,3}_digests.json``);
 the ``_D`` report must not be empty, at most ``MAX_FALLBACK`` of the reads
-may take the host oracle, the scan kernel's launches must be equal from
-run to run, and on a card the kernel must have launched and, on the
+may take the host oracle, the search kernels' launches (the scan's and
+the fused close/far kernels') must be equal from run to run, and on a card
+they must have launched and, on the
 BreakDancer scenes, ``_far_win_kernel`` (K4) must have searched rows.
 Scene 3 must also span its three windows.  A failed gate prints
 ``"value": 0.0`` and ``"correct": false`` and exits 1, whichever scene
@@ -38,9 +39,10 @@ windows over the chromosome's bases; the window loop also visits an empty
 window at the chromosome's end when its length is a multiple of the
 window, as the reference's does); ``correct``, ``layers`` (each scene's
 coarse timer phases of its last timed run; they overlap, so they are
-phases, not shares of the wall), ``launches`` (the scan kernel's launches
-in each scene's last run), ``counters`` (each scene's last run: scan
-launches, windows visited and with bases, ``_far_win_kernel`` rows, legacy
+phases, not shares of the wall), ``launches`` (the search kernels'
+launches in each scene's last run), ``counters`` (each scene's last run:
+search kernel launches, the scan's and the fused kernels' apart, windows
+visited and with bases, ``_far_win_kernel`` rows, legacy
 per-lane rows, shard kernel launches, peak card memory in MiB, and per
 window its reads and the seconds at which it was read in, staged and
 reported), ``device`` (the card's name and power limit), and the set-up
@@ -61,8 +63,8 @@ from typing import Callable, Dict, List, Optional
 import torch
 
 from pindel_tpu_torch.__main__ import main as port_main
-from pindel_tpu_torch.ops import (engine_fused, engine_jax, scan_cuda,
-                                  sharded_search_cuda)
+from pindel_tpu_torch.ops import (engine_fused, engine_jax, fused_cuda,
+                                  scan_cuda, sharded_search_cuda)
 from pindel_tpu_torch.parallel.multihost import build_libraries
 from pindel_tpu_torch.pipeline import resolve_device
 from pindel_tpu_torch.profiling import g_fallback, g_timer
@@ -145,9 +147,9 @@ def log(msg: str) -> None:
 def run(scene: Scene, prefix: str, dev) -> dict:
     """One CLI run of ``scene`` on ``dev``: its wall (device work
     included), the digests of its reports, whether ``_D`` is empty, the
-    scan kernel's launches, the fallback ratio, the timer phases and the
+    search kernels' launches, the fallback ratio, the timer phases and the
     run's ``counters``."""
-    scan_cuda.LAUNCHES = 0
+    fused_cuda.reset_launches()
     sharded_search_cuda.LAUNCHES = 0
     engine_fused.FAR_WIN_ROWS = 0
     engine_jax.LEGACY_ROWS = 0
@@ -162,7 +164,11 @@ def run(scene: Scene, prefix: str, dev) -> dict:
         raise RuntimeError(f"{scene.name}: the CLI returned {rc}")
     got = reports(prefix)
     counters = dict(
-        launches=scan_cuda.LAUNCHES,
+        launches=fused_cuda.search_launches(),
+        scan_launches=scan_cuda.LAUNCHES,
+        fused_launches=fused_cuda.LAUNCHES,
+        close_launches=fused_cuda.LAUNCHES_BY_KERNEL["close"],
+        far_launches=fused_cuda.LAUNCHES_BY_KERNEL["far"],
         windows=sum(w["start"] < w["end"] for w in windows),
         windows_visited=len(windows),
         far_win_rows=engine_fused.FAR_WIN_ROWS,
@@ -172,13 +178,14 @@ def run(scene: Scene, prefix: str, dev) -> dict:
                   if dev.type == "cuda" else None),
         by_window=windows)
     return dict(wall=wall, digests=digests(got), d_empty=not got.get("D"),
-                launches=scan_cuda.LAUNCHES, fallback=g_fallback.ratio(),
+                launches=fused_cuda.search_launches(),
+                fallback=g_fallback.ratio(),
                 phases=g_timer.items(), counters=counters)
 
 
 def problems(scene: Scene, runs: List[dict], kernel: bool) -> List[str]:
     """What fails the gate over ``runs`` of ``scene``; ``kernel``: the runs
-    must have launched the scan kernel (a fused run on a card)."""
+    must have launched the search kernels (a fused run on a card)."""
     out = []
     for i, r in enumerate(runs):
         if r["digests"] != scene.want:
@@ -200,10 +207,11 @@ def problems(scene: Scene, runs: List[dict], kernel: bool) -> List[str]:
                        "no row")
     launches = {r["launches"] for r in runs}
     if len(launches) != 1:
-        out.append(f"{scene.name}: scan launches differ between runs: "
+        out.append(f"{scene.name}: search kernel launches differ between "
+                   "runs: "
                    f"{[r['launches'] for r in runs]}")
     if kernel and 0 in launches:
-        out.append(f"{scene.name}: the scan kernel never launched")
+        out.append(f"{scene.name}: the search kernels never launched")
     return out
 
 
@@ -258,7 +266,7 @@ def main(argv=None) -> int:
                 log(f"GATE FAILED: {line}")
             c = timed[-1]["counters"]
             log(f"{key}: walls {walls}, median {med:.3f} s, "
-                f"{scene.n / med:.1f} {scene.unit}/s, scan launches "
+                f"{scene.n / med:.1f} {scene.unit}/s, search kernel launches "
                 f"{c['launches']}, fallback {timed[-1]['fallback']}, "
                 f"windows {c['windows']} (visited {c['windows_visited']}), "
                 f"_far_win_kernel rows {c['far_win_rows']}, legacy rows "

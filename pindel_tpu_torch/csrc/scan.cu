@@ -69,6 +69,10 @@
 // * Staging is a plain coalesced byte copy into shared memory, a segment
 //   at a time.  It is not double-buffered across rows: a block is one row,
 //   and the rows resident per SM cover one another's loads.
+//
+// The per-row walk (seed pass, sparse and dense walkers, the reduction) is
+// in scan_walk.cuh, which the fused close/far kernels (fused_search.cu)
+// share; this file holds the kernel over materialised tiles and its launch.
 #include <algorithm>
 #include <atomic>
 #include <cstddef>
@@ -76,212 +80,29 @@
 
 #include <cuda_runtime.h>
 
+#include "scan_walk.cuh"
+
 namespace {
 
-#ifndef SCAN_MAX_K
-#define SCAN_MAX_K 6
-#endif
-#ifndef SCAN_MIN_BLOCKS
-#define SCAN_MIN_BLOCKS 24
-#endif
-constexpr int kMaxK = SCAN_MAX_K;            // candidate slots per lane
-constexpr int kMinBlocks = SCAN_MIN_BLOCKS;  // resident warps per SM
-constexpr int kMaxWarps = 8;                 // warps per row, at most
-// lanes staged per segment, at most: every lane of the widest close bucket
-// (w = 2048 at lmax 128), so that a main-path row is one segment; and at
-// least, where a row's warps split it
-constexpr int kSeg = 2176;
-constexpr int kMinSeg = 256;
-constexpr int kCodeN = 4;
-constexpr int kNever = -(1 << 20);
-constexpr int kMaxi = 0x7fffffff;
-constexpr unsigned kFull = 0xffffffffu;
+using namespace ptscan;
+
 constexpr int kMaxDevices = 64;
 
-__host__ __device__ constexpr int round16(int x) { return (x + 15) & ~15; }
-
-// Shared memory of a block of nw warps, for ceil(lsteps / 4) step groups
-// and segments of seg lanes: the per-group query words and masks, then for
-// each warp its per-step accumulators, staged tile segment and the
-// segment's seed list.
-struct Layout {
-  int meta, acc, tile, list, warp, total;
-  __host__ __device__ Layout(int ngroups, int nw, int seg)
-      : meta(16 * ngroups),
-        acc(2 * 4 * 4 * ngroups),
-        tile(round16(seg + 4 * ngroups + 8)),
-        list(round16(2 * seg)),
-        warp(acc + tile + list),
-        total(meta + nw * warp) {}
+// A row's tile as the caller materialised it: t bytes from p.
+struct RowTile {
+  const int8_t *p;
+  int t;
+  __device__ __forceinline__ int at(int i) const { return p[i]; }
+  // Copy tile bytes [seg0, seg0 + n) into buf, bytes at or past t read as N.
+  __device__ __forceinline__ void stage(int8_t *buf, int seg0, int n,
+                                        int lane) const {
+    __syncwarp();   // the walk is done with the previous segment
+    for (int i = lane; i < n; i += 32) {
+      buf[i] = seg0 + i < t ? p[seg0 + i] : static_cast<int8_t>(kCodeN);
+    }
+    __syncwarp();
+  }
 };
-
-// Fold one key into a (min, min over keys != min) pair.
-__device__ __forceinline__ void push_key(int &m1, int &m2, int key) {
-  if (key < m1) {
-    m2 = m1;
-    m1 = key;
-  } else if (key != m1 && key < m2) {
-    m2 = key;
-  }
-}
-
-// The same for keys known to be distinct.
-__device__ __forceinline__ void push_distinct(int &m1, int &m2, int key) {
-  m2 = min(m2, max(m1, key));
-  m1 = min(m1, key);
-}
-
-// Fold two pairs; each has m2 > m1 or m2 == kMaxi.
-__device__ __forceinline__ void merge_pair(int &m1, int &m2, int o1, int o2) {
-  const int m = min(m1, o1);
-  const int s = min(m1 == m ? m2 : m1, o1 == m ? o2 : o1);
-  m1 = m;
-  m2 = s;
-}
-
-// Bit 7 of each byte set where the byte of x is nonzero.
-__device__ __forceinline__ uint32_t nonzero_bytes(uint32_t x) {
-  return ((x & 0x7f7f7f7fu) + 0x7f7f7f7fu) | x;
-}
-
-// Copy tile bytes [seg0, seg0 + n) into buf, bytes at or past t read as N.
-__device__ __forceinline__ void stage(int8_t *buf, const int8_t *tile,
-                                      int seg0, int n, int t, int lane) {
-  __syncwarp();   // the walk is done with the previous segment
-  for (int i = lane; i < n; i += 32) {
-    buf[i] = seg0 + i < t ? tile[seg0 + i] : static_cast<int8_t>(kCodeN);
-  }
-  __syncwarp();
-}
-
-// What the walker needs of its row and segment (warp-uniform).
-struct Row {
-  const uint4 *meta;      // per step group: query word, N mask, count mask,
-                          // mark mask (bit 7 of each byte)
-  int *acc1, *acc2;       // per-step running (min, second min)
-  const int8_t *buf;      // staged tile bytes from lane seg0 on
-  const int16_t *list;    // seed positions in buf (sparse branch)
-  int seg0, lo, hi, off, q0, thr, w, shift, dead, lsteps, mpm, steps1;
-};
-
-// Walk candidates i0 .. i0 + m - 1 of the segment (m <= 32 * K, and
-// m > 32 * (K - 1)): pass 1 for the fit bit, then pass 2 with the per-step
-// warp reduction folded into the row's accumulators.
-template <int K, bool kSparse>
-__device__ __forceinline__ void walk(const Row &r, int i0, int m, int lane) {
-  const auto *tw = reinterpret_cast<const uint32_t *>(r.buf);
-  int wi[K];          // word index of the candidate's first byte
-  int sh[K];          // its bit offset in that word
-  int keyb[K];
-  // slots j < K - 1 are full; the last one holds m - 32 * (K - 1)
-  const bool last_ok = lane < m - 32 * (K - 1);
-#pragma unroll
-  for (int j = 0; j < K; ++j) {
-    const int slot = lane + 32 * j;
-    const bool ok = j < K - 1 || last_ok;
-    const int p = !ok ? 0 : kSparse ? r.list[i0 + slot] : i0 + slot;
-    wi[j] = p >> 2;
-    sh[j] = (p & 3) * 8;
-    const int c = r.seg0 + p;
-    const bool seeded =
-        kSparse || (r.buf[p] == r.q0 && c >= r.lo && c < r.hi);
-    const int woff = min(max(c - r.off, 0), r.w - 1);
-    keyb[j] = ((seeded ? 0 : r.dead) << r.shift) | (woff << 2);
-  }
-
-  // ---- pass 1: Matches() mismatch totals over steps 1 .. steps1 - 1
-  uint32_t prev[K];
-  int total[K];
-#pragma unroll
-  for (int j = 0; j < K; ++j) {
-    prev[j] = tw[wi[j]];
-    total[j] = 0;
-  }
-  const int ng1 = (r.steps1 + 3) >> 2;
-  for (int g = 0; g < ng1; ++g) {
-    const uint4 mt = r.meta[g];
-#pragma unroll
-    for (int j = 0; j < K; ++j) {
-      const uint32_t nxt = tw[wi[j] + g + 1];
-      const uint32_t tb = __funnelshift_r(prev[j], nxt, sh[j]);
-      prev[j] = nxt;
-      total[j] += __popc((nonzero_bytes(tb ^ mt.x) ^ mt.y) & mt.z);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < K; ++j) keyb[j] |= total[j] < r.thr ? 1 : 0;
-
-  // ---- pass 2: the scan proper
-  int last[K];
-#pragma unroll
-  for (int j = 0; j < K; ++j) {
-    prev[j] = tw[wi[j]];
-    last[j] = kNever;
-  }
-  const int inc = 1 << r.shift;
-  const int ngroups = (r.lsteps + 3) >> 2;
-  int r1 = kMaxi;     // this lane's step of the current 32-step block
-  int r2 = kMaxi;
-  for (int g = 0; g < ngroups; ++g) {
-    const uint4 mt = r.meta[g];
-    uint32_t y[K];    // bit 7 of byte s: strict mismatch at step 4g + s
-#pragma unroll
-    for (int j = 0; j < K; ++j) {
-      const uint32_t nxt = tw[wi[j] + g + 1];
-      y[j] = nonzero_bytes(__funnelshift_r(prev[j], nxt, sh[j]) ^ mt.x);
-      prev[j] = nxt;
-    }
-#pragma unroll
-    for (int s = 0; s < 4; ++s) {
-      const int l = 4 * g + s;
-      if (l >= r.lsteps) break;
-      const uint32_t bit = 0x80u << (8 * s);
-      const uint32_t count = mt.z & bit;   // the step counts
-      const uint32_t mark = mt.w & bit;    // the step is marked
-      const int lim = l - r.mpm;
-      int m1 = kMaxi;
-      int m2 = kMaxi;
-#pragma unroll
-      for (int j = 0; j < K; ++j) {
-        if ((y[j] ^ mt.y) & count) keyb[j] += inc;
-        if (y[j] & mark) last[j] = l;
-        const int key = keyb[j] + (last[j] > lim ? 2 : 0);
-        if (j < K - 1 || last_ok) {
-          if (kSparse) push_distinct(m1, m2, key);
-          else push_key(m1, m2, key);
-        }
-      }
-      const int mn = __reduce_min_sync(kFull, m1);
-      const int sc = __reduce_min_sync(kFull, m1 == mn ? m2 : m1);
-      if (lane == (l & 31)) {
-        r1 = mn;
-        r2 = sc;
-      }
-      if ((l & 31) == 31 || l == r.lsteps - 1) {
-        const int lb = (l & ~31) + lane;
-        if (lb <= l) {
-          int a1 = r.acc1[lb];
-          int a2 = r.acc2[lb];
-          merge_pair(a1, a2, r1, r2);
-          r.acc1[lb] = a1;
-          r.acc2[lb] = a2;
-        }
-      }
-    }
-  }
-}
-
-// Walk m candidates with the least K that holds them.
-template <int K, bool kSparse>
-__device__ void walk_chunk(const Row &r, int i0, int m, int lane) {
-  if constexpr (K < kMaxK) {
-    if (m > 32 * K) {
-      walk_chunk<K + 1, kSparse>(r, i0, m, lane);
-      return;
-    }
-  }
-  walk<K, kSparse>(r, i0, m, lane);
-}
 
 template <int NW>
 __global__ void __launch_bounds__(32 * NW, kMinBlocks / NW ? kMinBlocks / NW
@@ -307,100 +128,28 @@ scan_rows_kernel(const int8_t *__restrict__ tiles,
   auto *buf = reinterpret_cast<int8_t *>(mine + lay.acc);
   auto *list = reinterpret_cast<int16_t *>(mine + lay.acc + lay.tile);
   const int row = blockIdx.x;
-  const int8_t *tile = tiles + static_cast<size_t>(row) * t;
+  const RowTile tile{tiles + static_cast<size_t>(row) * t, t};
   const int8_t *q = qq + static_cast<size_t>(row) * lmax;
   Row r;
   r.meta = meta;
   r.acc1 = acc1;
   r.acc2 = acc2;
-  r.buf = buf;
-  r.list = list;
   const int vw = valid_w[row];
-  const int ql = qlen[row];
-  r.off = off[row];
-  r.thr = thr[row];
-  r.q0 = q[0];
-  r.w = w;
-  r.shift = shift;
-  r.dead = dead;
-  r.lsteps = lsteps;
-  r.mpm = mpm;
-  r.steps1 = min(lsteps, ql);   // counted steps are 1 .. steps1 - 1
-  r.lo = max(r.off, 0);
-  r.hi = r.q0 == kCodeN ? r.lo : max(r.lo, min(r.off + vw, we));
-
-  for (int g = threadIdx.x; g < ngroups; g += 32 * NW) {
-    uint32_t qw = 0, qn = 0, cnt = 0, mark = 0;
-#pragma unroll
-    for (int s = 0; s < 4; ++s) {
-      const int l = 4 * g + s;
-      const int qb = l < lmax ? q[l] : kCodeN;
-      qw |= static_cast<uint32_t>(qb & 0xff) << (8 * s);
-      if (qb == kCodeN) qn |= 0x80u << (8 * s);
-      if (l >= 1 && l < r.steps1) cnt |= 0x80u << (8 * s);
-      if (l >= 1 && l < lsteps) mark |= 0x80u << (8 * s);
-    }
-    meta[g] = make_uint4(qw, qn, cnt, mark);
-  }
-  for (int l = lane; l < 4 * ngroups; l += 32) {
-    acc1[l] = kMaxi;
-    acc2[l] = kMaxi;
-  }
+  init_row(r, q[0], vw, qlen[row], off[row], thr[row], we, w, shift, dead,
+           lsteps, mpm);
+  build_meta(meta, q, lmax, lsteps, r.steps1, threadIdx.x, 32 * NW);
+  init_acc(acc1, acc2, ngroups, lane);
   __syncthreads();   // meta is complete
 
-  // every warp counts the row's seeds (up to two) from device memory, so
-  // all of them pick the same branch
-  int nseed = 0;
-  for (int c0 = r.lo; c0 < r.hi && nseed < 2; c0 += 32) {
-    const int c = c0 + lane;
-    nseed += __popc(__ballot_sync(kFull, c < r.hi && tile[c] == r.q0));
-  }
-  const bool sparse = nseed >= 2 && vw <= w && r.steps1 <= dead;
-
-  const int end = sparse ? r.hi : we;
-  for (int seg0 = warp * seg; seg0 < end; seg0 += NW * seg) {
-    const int segn = min(seg, we - seg0);
-    stage(buf, tile, seg0, segn + 4 * ngroups + 4, t, lane);
-    r.seg0 = seg0;
-    int n = segn;
-    if (sparse) {
-      // compact the segment's seeds, lanes [lo, hi) of it, in order
-      const int a = max(r.lo - seg0, 0);
-      const int b = min(r.hi - seg0, segn);
-      n = 0;
-      for (int i0 = a; i0 < b; i0 += 32) {
-        const int i = i0 + lane;
-        const bool seed = i < b && buf[i] == r.q0;
-        const unsigned bal = __ballot_sync(kFull, seed);
-        if (seed) list[n + __popc(bal & ((1u << lane) - 1))] = i;
-        n += __popc(bal);
-      }
-      __syncwarp();
-    }
-    for (int i0 = 0; i0 < n; i0 += 32 * kMaxK) {
-      const int m = min(32 * kMaxK, n - i0);
-      if (sparse) walk_chunk<1, true>(r, i0, m, lane);
-      else walk_chunk<1, false>(r, i0, m, lane);
-    }
-  }
+  walk_row(r, tile, vw, we, seg, NW, warp, lane, buf, list);
   __syncthreads();   // every warp's accumulators are complete
 
   // fold the warps' pairs (order-free) and write the row coalesced
   int32_t *kmin_row = kmin + static_cast<size_t>(row) * lmax;
   int32_t *k2_row = k2 + static_cast<size_t>(row) * lmax;
   for (int l = threadIdx.x; l < lmax; l += 32 * NW) {
-    int a1 = 0;
-    int a2 = 0;
-    if (l < lsteps) {
-      a1 = kMaxi;
-      a2 = kMaxi;
-#pragma unroll
-      for (int k = 0; k < NW; ++k) {
-        const auto *other =
-            reinterpret_cast<const int *>(smem + lay.meta + k * lay.warp);
-        merge_pair(a1, a2, other[l], other[4 * ngroups + l]);
-      }
-    }
+    int a1, a2;
+    fold_step<NW>(smem + lay.meta, lay.warp, ngroups, l, lsteps, a1, a2);
     kmin_row[l] = a1;
     k2_row[l] = a2;
   }

@@ -10,21 +10,28 @@ JAX engine:
   NewUPFarIsBetter replacement rule (farend_searcher.cpp:30-44) between
   rounds.
 
-``_far_win_kernel`` runs one both-strand far-end round over an explicit
-window per read: the BreakDancer/RP evidence windows of BAM input.  All
-three go through ``_scan_lanes`` -> ``scan_rows``, which launches the
-hand-written CUDA scan (``csrc/scan.cu``) on CUDA tensors and runs its plain
-PyTorch version on CPU tensors.  The device half below keeps the JAX
-functions' names and output contracts, so the host half (copied from the
-JAX module, which imports jax at module top) decodes the same packed
-words.  ``TorchFusedBackend`` reaches the three launches through its
-dispatch points ``_close_call``/``_far_call``/``_far_win_call``, which take
-the host payload; the data-parallel backend (``parallel/mesh_fused.py``)
-overrides them to split the payload over several devices.  Uniform chains
-are rebuilt exactly on the host; the rest go back to the Searcher, which
-reruns them on the NumPy oracle (``search.py``), except in ``run``, whose
-non-uniform rows and non-canonical lanes take the legacy per-lane backend
-(``engine_jax.py``) on the same device.
+Both dispatch on the payload's device: a CUDA tensor takes the hand-written
+fused kernels (``fused_cuda.pt_close``/``pt_far``, ``csrc/fused_search.cu``:
+one launch a call, tiles read straight from the chromosome, the scan and the
+emission rules in the block), a CPU tensor the plain versions
+``_close_kernel_ref``/``_far_kernel_ref``.  ``_far_win_kernel`` runs one
+both-strand far-end round over an explicit window per read: the
+BreakDancer/RP evidence windows of BAM input.  It and the plain versions go
+through ``_scan_lanes`` -> ``scan_rows``, which launches the hand-written
+CUDA scan (``csrc/scan.cu``) on CUDA tensors and runs its plain PyTorch
+version on CPU tensors.  The device half below keeps the JAX functions'
+names and output contracts, so the host half (copied from the JAX module,
+which imports jax at module top) decodes the same packed words.
+``TorchFusedBackend`` reaches the three launches through its dispatch
+points ``_close_call``/``_far_call``/``_far_win_call``, which take the host
+payload of a chunk's real rows (rounded up to ``dp``, the devices the mesh
+backend splits them over); the data-parallel backend
+(``parallel/mesh_fused.py``) overrides them to split the payload over
+several devices.  Uniform chains are rebuilt exactly on the host; the rest
+go back to the Searcher, which reruns them on the NumPy oracle
+(``search.py``), except in ``run``, whose non-uniform rows and
+non-canonical lanes take the legacy per-lane backend (``engine_jax.py``) on
+the same device.
 """
 from __future__ import annotations
 
@@ -49,13 +56,6 @@ FAR_WIN_ROWS = 0     # reads searched by _far_win_kernel since import
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
-
-
-def _b_bucket(b: int, buckets) -> int:
-    for bb in buckets:
-        if b <= bb:
-            return bb
-    return buckets[-1]
 
 
 # ------------------------------------------------------------ device half
@@ -254,9 +254,21 @@ def _close_meta(pos, isz, qlen, ms, tm, thr, minus) -> np.ndarray:
     return m
 
 
-def _close_kernel(chrom, payload, maxmm,
-                  *, w0: int, w1: int, lmax: int, mpm: int, bp_start: int,
-                  lsteps: int, with_r1: bool):
+def _close_kernel(chrom, payload, maxmm, **static):
+    """K2 on the payload's device: ``fused_cuda.pt_close`` on a card, the
+    plain ``_close_kernel_ref`` on the CPU; any other device raises."""
+    kind = payload.device.type
+    if kind == "cpu":
+        return _close_kernel_ref(chrom, payload, maxmm, **static)
+    if kind == "cuda":
+        from pindel_tpu_torch.ops import fused_cuda
+        return fused_cuda.pt_close(chrom, payload, maxmm, **static)
+    raise ValueError(f"_close_kernel: no kernel for device {payload.device}")
+
+
+def _close_kernel_ref(chrom, payload, maxmm,
+                      *, w0: int, w1: int, lmax: int, mpm: int,
+                      bp_start: int, lsteps: int, with_r1: bool):
     """All four close-end attempts in one launch (see the JAX
     ``_close_kernel``): '+' reads query [RC(f), f, f, RC(f)], '-' reads
     [R(f), C(f), C(f), R(f)] over range 0 then range 1; the first emitting
@@ -343,9 +355,21 @@ def _far_meta(center, qlen, close_max, init_max, ms, tm, thr,
     return m
 
 
-def _far_kernel(chrom, payload, maxmm,
-                *, spans: Tuple[int, ...], ws: Tuple[int, ...], lmax: int,
-                mpm: int, bp_start: int, lsteps: int = 0):
+def _far_kernel(chrom, payload, maxmm, **static):
+    """K3 on the payload's device: ``fused_cuda.pt_far`` on a card, the
+    plain ``_far_kernel_ref`` on the CPU; any other device raises."""
+    kind = payload.device.type
+    if kind == "cpu":
+        return _far_kernel_ref(chrom, payload, maxmm, **static)
+    if kind == "cuda":
+        from pindel_tpu_torch.ops import fused_cuda
+        return fused_cuda.pt_far(chrom, payload, maxmm, **static)
+    raise ValueError(f"_far_kernel: no kernel for device {payload.device}")
+
+
+def _far_kernel_ref(chrom, payload, maxmm,
+                    *, spans: Tuple[int, ...], ws: Tuple[int, ...],
+                    lmax: int, mpm: int, bp_start: int, lsteps: int = 0):
     """All geometric far-end rounds in one launch (see the JAX
     ``_far_kernel``): lane 0 a forward tile with the current sequence,
     lane 1 a backward tile with its complement.  A read is searched in a
@@ -674,11 +698,11 @@ class TorchFusedBackend:
     on the calling thread; the ``-T`` pool decodes with NumPy only.
     """
 
-    # chunking as in the JAX engine; results do not depend on it
-    B_BUCKETS = (256, 2048, 4096, 8192, 12288, 16384, 24576, 32768,
-                 49152, 65536)
+    # chunking as in the JAX engine; results do not depend on it.  The
+    # launches take a chunk's real rows, rounded up to ``dp``
     CHUNK = 32768
     LEAD = 8192
+    dp = 1      # devices a launch's rows are split over
 
     def __init__(self, settings, maxmm: np.ndarray, chrom_codes: np.ndarray,
                  chrom_name: str = None, device="cuda"):
@@ -738,7 +762,7 @@ class TorchFusedBackend:
                                     max_snps[lo:hi], tsec_minus[lo:hi]))
             return out
         t0 = time.monotonic()
-        b = _b_bucket(n, self.B_BUCKETS)
+        b = self._rows(n)
         qlen = np.zeros(b, np.int32)
         qlen[:n] = [lanes[0].query.shape[0] for lanes in batch_lanes]
         qlen[n:] = 1
@@ -838,6 +862,12 @@ class TorchFusedBackend:
                          self.state.maxmm, **static)
             return _Download(out)
 
+    def _rows(self, n: int) -> int:
+        """Rows of a launch of n reads: the real rows, rounded up to dp
+        (rows are searched independently and only real rows are decoded,
+        so the padding never changes a result)."""
+        return _round_up(max(n, 1), self.dp)
+
     @staticmethod
     def _w_bucket(width: int) -> int:
         """Window bucket: 128*2^k with 3*2^k intermediates (192, 384,
@@ -929,7 +959,7 @@ class TorchFusedBackend:
 
     def _close_dispatch(self, reads, base: int, results, bp_start: int):
         nb = len(reads)
-        b = _b_bucket(nb, self.B_BUCKETS)
+        b = self._rows(nb)
         blob, offs = _seq_blob(reads, nb)
         qlen = np.zeros(b, np.int32)
         qlen[:nb] = np.diff(offs)
@@ -952,7 +982,7 @@ class TorchFusedBackend:
                               bp_start: int):
         """Array-sourced dispatch: a lazy ReadBatch + row indices."""
         nb = rows.size
-        b = _b_bucket(nb, self.B_BUCKETS)
+        b = self._rows(nb)
         qlen = np.zeros(b, np.int32)
         qlen[:nb] = batch.sl[rows]
         minus = np.zeros(b, bool)
@@ -1144,7 +1174,7 @@ class TorchFusedBackend:
                       bp_start: int):
         t0 = time.monotonic()
         nb = len(reads)
-        b = _b_bucket(nb, self.B_BUCKETS)
+        b = self._rows(nb)
         nr = len(spans)
         blob, offs = _seq_blob(reads, nb)
         qlen = np.zeros(b, np.int32)

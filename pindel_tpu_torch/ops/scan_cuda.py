@@ -46,11 +46,16 @@ def nvcc() -> str:
 def compile_library(source: str, library: str, force: bool = False,
                     ptxas_info: bool = False) -> str:
     """Compile ``source`` with nvcc for sm_90a into the shared library
-    ``library`` unless the library is newer than the source.  Returns
-    nvcc's diagnostics (with ``ptxas_info``, the registers, shared memory
-    and spills of every kernel); raises if nvcc fails."""
+    ``library`` unless the library is newer than the source and the
+    headers (``*.cuh``) beside it.  Returns nvcc's diagnostics (with
+    ``ptxas_info``, the registers, shared memory and spills of every
+    kernel); raises if nvcc fails."""
+    here = os.path.dirname(os.path.abspath(source))
+    inputs = [source] + [os.path.join(here, f) for f in os.listdir(here)
+                         if f.endswith(".cuh")]
     if (not force and os.path.exists(library)
-            and os.path.getmtime(library) >= os.path.getmtime(source)):
+            and os.path.getmtime(library) >= max(map(os.path.getmtime,
+                                                     inputs))):
         return ""
     os.makedirs(os.path.dirname(library), exist_ok=True)
     tmp = f"{library}.{os.getpid()}.tmp"

@@ -46,16 +46,6 @@ def normalize(device) -> torch.device:
     return dev
 
 
-def check_split(n: int) -> None:
-    """Raise ValueError unless every batch bucket of the fused backend
-    splits evenly over ``n`` devices."""
-    if any(b % n for b in ef.TorchFusedBackend.B_BUCKETS):
-        raise ValueError(
-            f"{n} devices: the batch buckets "
-            f"{ef.TorchFusedBackend.B_BUCKETS} do not all divide by {n}; "
-            "give the mesh backend a power of two of devices (at most 256)")
-
-
 class _Merged:
     """The shards' outputs on their way to host memory; ``get`` waits for
     each and concatenates them in row order."""
@@ -83,7 +73,6 @@ class TorchMeshBackend(ef.TorchFusedBackend):
                          chrom_name=chrom_name, device=devices[0])
         self.devices = devices
         self.dp = len(devices)
-        check_split(self.dp)
         # chromosome, its tile layout and maxmm: one replica per distinct
         # device
         self.states = {self.device: self.state}

@@ -21,14 +21,14 @@ whose CUDA may be up.  Every rank runs the whole window loop of
   reporting for every window, so the sequential report state never leaves
   one process and the reports are byte-identical to a one-process run.
 
-The coordinator builds the scan kernel and the native libraries before it
+The coordinator builds the search kernels and the native libraries before it
 spawns, so N processes do not compile at once.  While it waits for a
 window it watches its workers, and it raises as soon as one exits
 non-zero, or exits without shipping the window; at the end it checks every
 worker's exit code.  -S (report only close-mapped reads) is refused: it is
 itself the two-phase checkpoint flow, and a worker would report.  Each
-rank's record (devices, windows owned, scan launches by card, times) lands
-in ``LAST_RANKS`` after a run.
+rank's record (devices, windows owned, search kernel launches by card and
+by kernel, times) lands in ``LAST_RANKS`` after a run.
 """
 from __future__ import annotations
 
@@ -45,8 +45,7 @@ from typing import Dict, List, Optional
 
 import torch
 
-from pindel_tpu_torch.ops import scan_cuda
-from pindel_tpu_torch.parallel.mesh_fused import check_split
+from pindel_tpu_torch.ops import fused_cuda, scan_cuda
 from pindel_tpu_torch.profiling import g_timer
 
 # one record per rank of the last run_files_multihost, rank 0 first
@@ -174,10 +173,10 @@ def rank_devices(device, backend: str, rank: int,
     ``cpu`` and an indexed card (``cuda:K``) serve every rank, and the
     ``numpy`` backend searches on the host (``cpu``).  Bare ``cuda``
     spreads the ranks over the visible cards: rank r takes card ``r %
-    count``, and with ``mesh`` a block of its own of the largest power of
-    two of cards at most ``count // num_hosts`` (cards ``[r * n, (r + 1) *
-    n)``), so that its batch buckets split evenly; with fewer cards than
-    ranks it takes its one card ``r % count``.  No visible card raises."""
+    count``, and with ``mesh`` a block of its own of ``n = count //
+    num_hosts`` cards (cards ``[r * n, (r + 1) * n)``); with fewer cards
+    than ranks it takes its one card ``r % count``.  No visible card
+    raises."""
     dev = torch.device(device)
     if backend == "numpy":
         return ["cpu"]
@@ -188,14 +187,13 @@ def rank_devices(device, backend: str, rank: int,
         raise RuntimeError(f"device {device!r} requested but no CUDA card "
                            "is visible")
     if backend == "mesh" and count >= num_hosts:
-        n = 1 << ((count // num_hosts).bit_length() - 1)
-        check_split(n)
+        n = count // num_hosts
         return [f"cuda:{c}" for c in range(rank * n, (rank + 1) * n)]
     return [f"cuda:{rank % count}"]
 
 
 def build_libraries(devices) -> None:
-    """Build (or load the built) scan kernel, when a rank runs on a card,
+    """Build (or load the built) search kernels, when a rank runs on a card,
     and the native libraries the window loop loads, so that workers only
     load them."""
     from pindel_tpu_torch import bam, bddata, textindex
@@ -203,6 +201,7 @@ def build_libraries(devices) -> None:
     from pindel_tpu_torch.ops import engine_fused
     if any(torch.device(d).type == "cuda" for d in devices):
         scan_cuda._lib()
+        fused_cuda._lib()
     textindex._lib()
     bam._lib()
     bddata._native_rp()
@@ -211,9 +210,16 @@ def build_libraries(devices) -> None:
         raise RuntimeError("native/detect.cpp failed to build or load")
 
 
+def _kernel_launches() -> collections.Counter:
+    """Launches per search kernel (``scan``, ``close``, ``far``)."""
+    return collections.Counter(scan=scan_cuda.LAUNCHES,
+                               **fused_cuda.LAUNCHES_BY_KERNEL)
+
+
 def _launches_by_card(before: collections.Counter) -> Dict[str, int]:
-    """Scan launches per card index since ``before``."""
-    now = scan_cuda.LAUNCHES_BY_DEVICE - before
+    """Search kernel launches (the scan's and the fused kernels') per card
+    index since ``before``."""
+    now = fused_cuda.search_launches_by_device() - before
     return {str(k): v for k, v in sorted(now.items())}
 
 
@@ -285,6 +291,7 @@ def worker_main(cfg_path: str) -> int:
     spawned = cfg["spawned"]
     record = dict(rank=rank, devices=cfg["devices"], windows=spool.owned(),
                   launches_by_card=_launches_by_card(collections.Counter()),
+                  launches_by_kernel=dict(_kernel_launches()),
                   started_s=started - spawned, ready_s=ready - spawned,
                   first_window_s=(None if spool.first_dump is None
                                   else spool.first_dump - spawned),
@@ -347,7 +354,8 @@ def run_files_multihost(reference_fa: str, pindel_file: Optional[str],
     build_libraries([d for devs in devices for d in devs])
 
     t0 = time.time()
-    before = collections.Counter(scan_cuda.LAUNCHES_BY_DEVICE)
+    before = fused_cuda.search_launches_by_device()
+    before_kernel = _kernel_launches()
     cpu_shards = _cpu_shards(num_hosts)
     affinity = os.sched_getaffinity(0)
     env = dict(os.environ)
@@ -400,6 +408,8 @@ def run_files_multihost(reference_fa: str, pindel_file: Optional[str],
                 raise WorkerFailed(rank, code)
         records = [dict(rank=0, devices=devices[0], windows=spool.owned(),
                         launches_by_card=_launches_by_card(before),
+                        launches_by_kernel=dict(_kernel_launches()
+                                                - before_kernel),
                         started_s=0.0, ready_s=0.0, first_window_s=None,
                         **memory, phases=phases, wall_s=wall)]
         for rank in procs:

@@ -5,6 +5,7 @@ scene shapes (b rows, w0 = 512, w1 = 1536, lmax = 128, lsteps = 112), so
 that their device cost is seen apart from the pipeline's host work.
 
     python -m pindel_tpu_torch.tools.kernel_bench [B] [--device cuda|cpu]
+        [--per-round]
 
 The counterpart of ``tools/kernel_bench.py``: the same shapes and inputs
 from the same random stream (seed 0; K4's, which the reference tool does
@@ -12,19 +13,25 @@ not time, drawn after them), but the payloads are packed as the
 backend packs them (the close payload holds each read and its copy
 reversed within its length; both kernels take the chromosome in the
 [2 * rows, 128] layout of ``engine_fused._chrom_cat``).  Each call is timed
-with CUDA events, the least of 3 after a warm-up, and so is each scan
-kernel (K1) launch it makes (the K1 time of the call is their sum).  Each
-call's output is held, bit for bit, against the same call with the plain
-scan in the kernel's place (``correct``).  Each call's bound is K1's
-(``measure.scan_bound`` of each of its scan calls) plus the bytes its torch
-code must move once at ``PEAK_BYTES``: the payload read, the chromosome
-span of every tile it gathers, and its output written.
+with CUDA events, the least of 3 after a warm-up.  On a card K2 and K3 are
+the fused kernels (``fused_cuda.pt_close``/``pt_far``); beside each the
+torch composition they replaced (``_close_kernel_ref``/``_far_kernel_ref``
+over the scan kernel, K1) is timed as ``parent_ms``, with its scan calls'
+time (``k1_ms``).  K4 is the composition itself.  Each call's output is
+held, bit for bit, against the plain version (the ``_ref`` body, or K4,
+over the plain scan) (``correct``).  K2's and K3's bound is
+``measure.fused_bound`` (K1's operations over the rows the fused kernel
+scans, or the bytes it must move), printed beside the earlier count
+(``measure.composition_bound``: each scan call's ``scan_bound`` over all
+its rows plus the bytes the torch code moves), which stays K4's bound.
+``--per-round`` adds K3 over each of its rounds alone (``far_round_SPAN``),
+which shows the cost of a round by its window.
 
 The last line of standard output is one JSON object with, for each call,
-its ms, rows/s, K1 ms and launches, bound and the bound's share of its
-time, plus ``correct``, ``device`` (the card's name and power limit),
-``build_s`` (building or loading the scan kernel) and ``first_use_s`` (the
-first, untimed call of each).
+its ms, rows/s, parent and K1 ms, launches, bound, the earlier bound and
+the bound's share of its time, plus ``correct``, ``device`` (the card's
+name and power limit), ``build_s`` (building or loading the kernels) and
+``first_use_s`` (the first, untimed call of each).
 """
 from __future__ import annotations
 
@@ -37,11 +44,9 @@ import numpy as np
 import torch
 
 from pindel_tpu_torch.genome import SPACER
-from pindel_tpu_torch.ops import engine_fused, scan_cuda
+from pindel_tpu_torch.ops import engine_fused, fused_cuda, scan_cuda
 from pindel_tpu_torch.ops.engine_fused import (FW_WORDS, _chrom_cat,
-                                               _close_kernel, _close_meta,
-                                               _far_kernel, _far_meta,
-                                               _far_win_kernel,
+                                               _close_meta, _far_meta,
                                                _pack_payload,
                                                _reverse_codes_np)
 from pindel_tpu_torch.ops.scan import scan_rows_ref
@@ -94,27 +99,48 @@ def inputs(b: int):
     return chrom, maxmm, payload, fpayload, wpayload
 
 
+# the calls and the kernel each one names (for its plain version)
+KERNELS = {"close_both_ranges": "_close_kernel",
+           "close_range0": "_close_kernel", "far_3_rounds": "_far_kernel",
+           "far_window": "_far_win_kernel"}
+REFS = {"_close_kernel": engine_fused._close_kernel_ref,
+        "_far_kernel": engine_fused._far_kernel_ref}
+
+
 def calls(chrom, maxmm, payload, fpayload, wpayload, dev):
     """name -> a function that makes the call on ``dev`` (the inputs
     uploaded once)."""
+    return {name: (lambda k=KERNELS[name], a=a: getattr(engine_fused, k)(
+                *a[:3], **a[3]))
+            for name, a in call_args(chrom, maxmm, payload, fpayload,
+                                     wpayload, dev).items()}
+
+
+def call_args(chrom, maxmm, payload, fpayload, wpayload, dev,
+              per_round=False):
+    """name -> (chromcat, payload, maxmm, static) of each call on ``dev``
+    (the inputs uploaded once); with ``per_round`` also K3 over each of its
+    rounds alone."""
     chromcat = _chrom_cat(torch.from_numpy(chrom).to(dev))
     maxmm_t = torch.from_numpy(maxmm).to(dev)
     close_p = torch.from_numpy(payload).to(dev)
     far_p = torch.from_numpy(fpayload).to(dev)
     win_p = torch.from_numpy(wpayload).to(dev)
     return {
-        "close_both_ranges": lambda: _close_kernel(
-            chromcat, close_p, maxmm_t, with_r1=True, **CLOSE),
-        "close_range0": lambda: _close_kernel(
-            chromcat, close_p, maxmm_t, with_r1=False, **CLOSE),
-        "far_3_rounds": lambda: _far_kernel(chromcat, far_p, maxmm_t, **FAR),
-        "far_window": lambda: _far_win_kernel(chromcat, win_p, maxmm_t,
-                                              **FAR_WIN),
+        "close_both_ranges": (chromcat, close_p, maxmm_t,
+                              dict(CLOSE, with_r1=True)),
+        "close_range0": (chromcat, close_p, maxmm_t,
+                         dict(CLOSE, with_r1=False)),
+        "far_3_rounds": (chromcat, far_p, maxmm_t, FAR),
+        "far_window": (chromcat, win_p, maxmm_t, FAR_WIN),
+        **{f"far_round_{span}": (chromcat, far_p, maxmm_t,
+                                 dict(FAR, spans=(span,), ws=(w,)))
+           for span, w in zip(FAR["spans"], FAR["ws"]) if per_round},
     }
 
 
 def scan_calls(fn):
-    """``fn()``'s result and the scan calls it made, as (args, kw)."""
+    """The scan calls ``fn()`` makes, as (args, kw)."""
     made = []
     real = engine_fused.scan_rows
 
@@ -124,9 +150,10 @@ def scan_calls(fn):
 
     engine_fused.scan_rows = recording
     try:
-        return fn(), made
+        fn()
     finally:
         engine_fused.scan_rows = real
+    return made
 
 
 def with_plain_scan(fn):
@@ -137,20 +164,6 @@ def with_plain_scan(fn):
         return fn()
     finally:
         engine_fused.scan_rows = real
-
-
-def bound(payload_bytes: int, out, scans):
-    """The call's bound in ms: each scan call's ``scan_bound``, plus the
-    payload read, the chromosome span of each gathered tile and the output
-    written, once each, at PEAK_BYTES."""
-    k1 = 0.0
-    tiles = 0
-    for args, kw in scans:
-        seeds, sparse = measure.row_classes(args, kw)
-        k1 += measure.scan_bound(args, kw, seeds, sparse)[0]
-        tiles += args[0].numel()
-    glue = payload_bytes + tiles + out.numel() * out.element_size()
-    return k1 + glue / measure.PEAK_BYTES * 1e3
 
 
 def log(msg: str) -> None:
@@ -165,6 +178,8 @@ def main(argv=None) -> int:
                     help="rows per call (default 16384)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
+    ap.add_argument("--per-round", action="store_true",
+                    help="also time K3 over each of its rounds alone")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
     card = measure.device_line(dev)
@@ -172,40 +187,61 @@ def main(argv=None) -> int:
     if dev.type == "cuda":
         t0 = time.monotonic()
         scan_cuda._lib()
+        fused_cuda._lib()
         build_s = time.monotonic() - t0
-    log(f"device: {card}; scan kernel built or loaded in {build_s:.3f} s")
+    log(f"device: {card}; kernels built or loaded in {build_s:.3f} s")
 
     host = inputs(args.b)
-    _chrom, _maxmm, payload, fpayload, wpayload = host
-    sizes = {"close_both_ranges": payload.nbytes,
-             "close_range0": payload.nbytes, "far_3_rounds": fpayload.nbytes,
-             "far_window": wpayload.nbytes}
     result = {}
     correct = True
     with torch.inference_mode():
-        for name, fn in calls(*host, dev).items():
+        for name, (cat, pay, mm, static) in call_args(
+                *host, dev, args.per_round).items():
+            kname = KERNELS.get(name, "_far_kernel")
+            kernel = getattr(engine_fused, kname)
+            fn = lambda: kernel(cat, pay, mm, **static)  # noqa: E731
             t0 = time.monotonic()
-            scan_cuda.LAUNCHES = 0
-            out, scans = scan_calls(fn)
+            fused_cuda.reset_launches()
+            out = fn()
             measure.sync(dev)
             first_s = time.monotonic() - t0
-            launches = scan_cuda.LAUNCHES
-            same = torch.equal(out, with_plain_scan(fn))
-            correct &= same
+            launches = fused_cuda.search_launches()
             ms = measure.min_ms(fn, dev)
+            row = dict(rows=args.b, ms=ms, rows_per_s=args.b / ms * 1e3,
+                       launches=launches, first_use_s=first_s)
+            if kname in REFS:
+                ref = lambda: REFS[kname](cat, pay, mm, **static)  # noqa: E731
+                same = torch.equal(out, with_plain_scan(ref))
+                b = measure.fused_bound(kname, cat, pay, mm, static)
+                _out, scans, _rules = measure.composition_scans(
+                    kname, cat, pay, mm, static)
+                row.update(parent_ms=measure.min_ms(ref, dev),
+                           bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+                           earlier_bound_ms=b["composition_bound_ms"],
+                           rows_scanned=b["rows_scanned"],
+                           rows_all=b["rows_all"])
+            else:
+                same = torch.equal(out, with_plain_scan(fn))
+                scans = scan_calls(fn)
+                k = measure.composition_bound(pay, out, scans)
+                row.update(parent_ms=None, bound_ms=k, bound_by="operations",
+                           earlier_bound_ms=k)
             k1_ms = sum(measure.min_ms(
                 lambda a=a, kw=kw: engine_fused.scan_rows(*a, **kw), dev)
                 for a, kw in scans)
-            b_ms = bound(sizes[name], out, scans)
-            result[name] = dict(rows=args.b, ms=ms,
-                                rows_per_s=args.b / ms * 1e3, k1_ms=k1_ms,
-                                k1_calls=len(scans), launches=launches,
-                                bound_ms=b_ms, bound_share=b_ms / ms,
-                                first_use_s=first_s, equal_to_plain=same)
+            correct &= same
+            row.update(k1_ms=k1_ms, k1_calls=len(scans),
+                       bound_share=row["bound_ms"] / ms, equal_to_plain=same)
+            result[name] = row
             log(f"{name} b={args.b}: {ms:.4f} ms ({args.b / ms * 1e3:.0f} "
-                f"rows/s), its {len(scans)} scan calls {k1_ms:.4f} ms, "
-                f"bound {b_ms:.4f} ms ({b_ms / ms:.1%}), equal to the plain "
-                f"scan's: {same}  [{card}]")
+                f"rows/s), "
+                + (f"the composition it replaced {row['parent_ms']:.4f} ms, "
+                   if row["parent_ms"] is not None else "")
+                + f"{len(scans)} scan calls {k1_ms:.4f} ms, launches "
+                f"{launches}, bound {row['bound_ms']:.4f} ms "
+                f"({row['bound_share']:.1%}; earlier count "
+                f"{row['earlier_bound_ms']:.4f} ms), equal to the plain "
+                f"version: {same}  [{card}]")
     print(json.dumps(dict(
         tool="kernel_bench", b=args.b, calls=result, correct=correct,
         device=card, build_s=build_s,

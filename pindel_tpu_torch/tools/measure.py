@@ -1,5 +1,5 @@
 """What the port's measurement scripts share: the card's published peaks,
-the scan kernel's bound, the card line, CUDA event timing, the
+the scan kernel's bound, the fused kernels' bound, the card line, CUDA event timing, the
 device-busy share of a profiled run and the record of a run's windows.
 
 Used by ``chip_smoke.py`` and the tools (``pindel_tpu_torch.bench``,
@@ -91,6 +91,19 @@ def row_classes(args, kw):
                               lmax=kw["lmax"], lsteps=kw["lsteps"])
 
 
+def scan_ops(args, kw, seeds, sparse) -> float:
+    """The int32 operations one scan call's rows need: pass 1 over each
+    read's counted steps, pass 2 over ``lsteps``, on the seeded lanes of a
+    sparse row and on every lane of [0, WE) of the others."""
+    tiles, qlen = args[0], args[3]
+    lsteps = kw["lsteps"] or kw["lmax"]
+    we = tiles.shape[1] - kw["lmax"]
+    steps1 = (torch.clamp(qlen.double(), max=lsteps) - 1).clamp(min=0)
+    per_lane = steps1 * PASS1_OPS_PER_WORD / 4 + lsteps * PASS2_OPS
+    lanes = torch.where(sparse, seeds, we)
+    return float((lanes * per_lane).sum())
+
+
 def scan_bound(args, kw, seeds, sparse):
     """The least time the card could take for one scan call, from its
     inputs: the int32 operations its rows need (pass 1 over the read's
@@ -102,11 +115,8 @@ def scan_bound(args, kw, seeds, sparse):
     candidates at EARLIER_PASS1_OPS per step of pass 1, in ms)."""
     tiles, qq, valid_w, qlen, thr = args[:5]
     lsteps = kw["lsteps"] or kw["lmax"]
-    we = tiles.shape[1] - kw["lmax"]
+    ops = scan_ops(args, kw, seeds, sparse)
     steps1 = (torch.clamp(qlen.double(), max=lsteps) - 1).clamp(min=0)
-    per_lane = steps1 * PASS1_OPS_PER_WORD / 4 + lsteps * PASS2_OPS
-    lanes = torch.where(sparse, seeds, we)
-    ops = float((lanes * per_lane).sum())
     earlier = steps1 * EARLIER_PASS1_OPS + lsteps * PASS2_OPS
     dense_ops = float((valid_w.double() * earlier).sum())
     nbytes = (sum(a.numel() * a.element_size() for a in args)
@@ -115,6 +125,108 @@ def scan_bound(args, kw, seeds, sparse):
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes",
             max(dense_ops / PEAK_INT32_OPS, t_bytes) * 1e3)
+
+
+def composition_scans(name, chromcat, payload, maxmm, static):
+    """The plain composition of a fused call (``engine_fused``'s ``_ref``
+    body over the scan on the payload's device): its output, its scan calls
+    as (args, kw) and, per call, the emission rules' (any_emit, last) of
+    group 0."""
+    from pindel_tpu_torch.ops import engine_fused
+    ref = {"_close_kernel": engine_fused._close_kernel_ref,
+           "_far_kernel": engine_fused._far_kernel_ref}[name]
+    scans, rules = [], []
+    real_scan, real_rules = engine_fused.scan_rows, engine_fused._emit_rules
+
+    def scan(*a, **kw):
+        scans.append((a, kw))
+        return real_scan(*a, **kw)
+
+    def emit_rules(*a, **kw):
+        out = real_rules(*a, **kw)
+        rules.append((out[3][:, 0], out[4][:, 0]))
+        return out
+
+    engine_fused.scan_rows, engine_fused._emit_rules = scan, emit_rules
+    try:
+        out = ref(chromcat, payload, maxmm, **static)
+    finally:
+        engine_fused.scan_rows, engine_fused._emit_rules = (real_scan,
+                                                            real_rules)
+    return out, scans, rules
+
+
+def fused_rows(name, payload, static, out, rules):
+    """Per scan call of the composition, the rows (two a read) that the
+    fused kernel scans: for K2 range 0 whole and range 1 only for reads
+    with no range-0 emission; for K3 each round only for the reads still
+    active (close_max + st_max < qlen, as ``_far_kernel_ref`` replaces)."""
+    from pindel_tpu_torch.ops import engine_fused as ef
+    lmax = static["lmax"]
+    flags = out[:, lmax // 32 + 1]
+    if name == "_close_kernel":
+        reads = [torch.ones_like(flags, dtype=torch.bool)]
+        if static["with_r1"]:
+            reads.append((flags & 255) >= 2)
+    else:
+        _codes, meta = ef._unpack_payload(payload, lmax, ef.FM_WORDS)
+        qlen = meta[:, 1] & 0x3ff
+        close_max = (meta[:, 1] >> 10) & 0x3ff
+        st_max = (meta[:, 1] >> 20) & 0x3ff
+        reads = []
+        for any_emit, last in rules:
+            active = close_max + st_max < qlen
+            reads.append(active)
+            new_max = torch.where(any_emit, last + 1, 0)
+            st_max = torch.where(active & (new_max >= st_max), new_max,
+                                 st_max)
+    return [r.repeat_interleave(2) for r in reads]
+
+
+def composition_bound(payload, out, scans):
+    """The earlier bound of a fused call, counted as the torch composition
+    works: each scan call's ``scan_bound`` over all its rows, plus the
+    payload read, the chromosome span of each gathered tile and the output
+    written, once each, at PEAK_BYTES; in ms."""
+    k1 = 0.0
+    tiles = 0
+    for args, kw in scans:
+        seeds, sparse = row_classes(args, kw)
+        k1 += scan_bound(args, kw, seeds, sparse)[0]
+        tiles += args[0].numel()
+    glue = (payload.numel() + tiles
+            + out.numel() * out.element_size())
+    return k1 + glue / PEAK_BYTES * 1e3
+
+
+def fused_bound(name, chromcat, payload, maxmm, static):
+    """The least time of a fused call (``pt_close`` for ``_close_kernel``,
+    ``pt_far`` for ``_far_kernel``) as the kernel works: K1's operations
+    (``scan_ops``) over the rows it scans (``fused_rows``: real rows only,
+    range 1 only without a range-0 hit, rounds only while active) at
+    PEAK_INT32_OPS, or the bytes it must move at PEAK_BYTES (the payload,
+    one read of each scanned tile's chromosome span, the output), whichever
+    is longer.  Returns a dict: ``bound_ms``, ``bound_by``, the rows
+    scanned and in all, and ``composition_bound_ms`` (the earlier count)."""
+    out, scans, rules = composition_scans(name, chromcat, payload, maxmm,
+                                          static)
+    ops = 0.0
+    nbytes = payload.numel() + out.numel() * out.element_size()
+    scanned = total = 0
+    for (args, kw), rows in zip(scans, fused_rows(name, payload, static,
+                                                  out, rules)):
+        idx = rows.nonzero().flatten()
+        sub = [a.index_select(0, idx) for a in args]
+        seeds, sparse = row_classes(sub, kw)
+        ops += scan_ops(sub, kw, seeds, sparse)
+        nbytes += len(idx) * args[0].shape[1]
+        scanned += len(idx)
+        total += args[0].shape[0]
+    t_ops, t_bytes = ops / PEAK_INT32_OPS, nbytes / PEAK_BYTES
+    return dict(bound_ms=max(t_ops, t_bytes) * 1e3,
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                rows_scanned=scanned, rows_all=total,
+                composition_bound_ms=composition_bound(payload, out, scans))
 
 
 def device_busy(prof, wall_s: float):

@@ -17,11 +17,11 @@ one-process run takes one untimed run first (its first use); then ``t1``
 timed, each after ``torch.cuda.synchronize()``.  ``--dist jax`` means
 ``store``, as in the port's CLI.  The reports at ``--hosts N`` must be
 byte-identical to the one-process run's, and on a card every rank that
-owned a window must have launched the scan kernel (``correct``).
+owned a window must have launched the search kernels (``correct``).
 
 The last line of standard output is one JSON object: ``t1``, ``tN``,
-``hosts``, ``speedup``, ``efficiency``, each rank's devices, windows, scan
-launches by card and its spawn-to-imports, spawn-to-ready and
+``hosts``, ``speedup``, ``efficiency``, each rank's devices, windows,
+search kernel launches by card and its spawn-to-imports, spawn-to-ready and
 spawn-to-first-window times (``parallel/multihost.py`` ``LAST_RANKS``),
 ``correct``, ``device`` (the card's name and power limit), ``build_s`` and
 ``first_use_s``.  It writes no file of the repository.
@@ -36,7 +36,7 @@ import tempfile
 import time
 
 from pindel_tpu_torch.__main__ import main as port_main
-from pindel_tpu_torch.ops import scan_cuda
+from pindel_tpu_torch.ops import fused_cuda
 from pindel_tpu_torch.parallel import multihost
 from pindel_tpu_torch.pipeline import resolve_device
 from pindel_tpu_torch.testing.bamwriter import make_fai
@@ -131,9 +131,9 @@ def main(argv=None) -> int:
         try:
             first_use_s = timed_cli([*base, "-o", os.path.join(d, "first")],
                                     dev)
-            scan_cuda.LAUNCHES = 0
+            fused_cuda.reset_launches()
             t1 = timed_cli([*base, "-o", os.path.join(d, "single")], dev)
-            single_launches = scan_cuda.LAUNCHES
+            single_launches = fused_cuda.search_launches()
         finally:
             os.sched_setaffinity(0, all_cpus)
         log(f"one process: first use {first_use_s:.3f} s, then "
@@ -170,9 +170,9 @@ def main(argv=None) -> int:
         if (dev.type == "cuda" and r["windows"]
                 and not sum(r["launches_by_card"].values())):
             bad.append(f"rank {r['rank']} owned windows {r['windows']} but "
-                       "never launched the scan kernel")
+                       "never launched the search kernels")
         log(f"rank {r['rank']}: devices {r['devices']}, windows "
-            f"{r['windows']}, scan launches by card "
+            f"{r['windows']}, search kernel launches by card "
             f"{r['launches_by_card']}, spawn to imports "
             f"{r['started_s']:.3f} s, to ready {r['ready_s']:.3f} s, to "
             f"first window {r['first_window_s']}  [{card}]")

@@ -22,7 +22,7 @@ legacy rows, shard kernel launches, peak card memory, per-window times);
 
 Progress and reports go to standard error; the last line of standard
 output is one JSON object: the walls, the last run's coarse and fine
-phases, device seconds, busy share, top kernels, scan launches,
+phases, device seconds, busy share, top kernels, search kernel launches,
 ``counters``, ``correct``, ``device`` (the card's name and power limit) and ``build_s``.
 """
 from __future__ import annotations

@@ -43,7 +43,7 @@ MESH4 = ["cpu"] * 4
 
 def _rows_multiple_of(payload: np.ndarray, k: int = 8) -> np.ndarray:
     """The payload with its first rows repeated up to a multiple of ``k``
-    rows (a batch bucket always divides by the device count)."""
+    rows (a launch's rows always divide by the device count)."""
     n = -(-payload.shape[0] // k) * k
     return np.concatenate([payload, payload[:n - payload.shape[0]]])
 
@@ -171,13 +171,23 @@ def test_mesh_shards_each_reach_the_scan(monkeypatch, call):
 
 
 def test_mesh_refuses_indivisible_buckets():
-    """Three devices do not divide the 256-row bucket: the port raises
-    ValueError (an assert would vanish under python -O) where the
-    reference's assert fails."""
-    settings, chrom, _payload, _static = far_win_case()
-    with pytest.raises(ValueError, match="divide"):
-        TorchMeshBackend(to_port(settings), settings.max_mismatch(),
-                         chrom.seq, ["cpu"] * 3)
+    """Three devices do not divide the reference's 256-row bucket, and its
+    assert fails.  The port has no buckets (a launch takes a chunk's real
+    rows, rounded up to dp): over three devices it gives the fused
+    backend's rows, and refuses with ValueError (an assert would vanish
+    under python -O) only a payload whose rows do not split over them."""
+    settings, chrom, payload, static = far_win_case()
+    port_settings = to_port(settings)
+    maxmm = settings.max_mismatch()
+    payload = _rows_multiple_of(payload, 3)
+    mesh = TorchMeshBackend(port_settings, maxmm, chrom.seq, ["cpu"] * 3,
+                            chrom_name=chrom.name)
+    fused = tx.TorchFusedBackend(port_settings, maxmm, chrom.seq,
+                                 chrom_name=chrom.name, device="cpu")
+    np.testing.assert_array_equal(mesh._far_win_call(payload, **static).get(),
+                                  fused._far_win_call(payload, **static).get())
+    with pytest.raises(ValueError, match="split over 3 devices"):
+        mesh._far_win_call(payload[:-1], **static)
     with pytest.raises(AssertionError, match="divide"):
         MeshFusedBackend(settings, settings.max_mismatch(), chrom.seq,
                          make_dp_mesh(3))

@@ -190,9 +190,9 @@ def test_spool_assignment(make):
 
 @pytest.mark.parametrize("count", [1, 2, 3, 4, 5, 6, 8])
 def test_rank_devices(monkeypatch, count):
-    """Every rank's mesh devices satisfy TorchMeshBackend's precondition
-    (its batch buckets split evenly: a power of two of cards), and, with
-    at least as many cards as ranks, no card serves two ranks."""
+    """Every rank's mesh devices are a block of its own of count // n
+    cards, and, with at least as many cards as ranks, no card serves two
+    ranks."""
     monkeypatch.setattr(torch.cuda, "device_count", lambda: count)
 
     def spread(device, backend, n):
@@ -206,17 +206,15 @@ def test_rank_devices(monkeypatch, count):
     for backend in ("fused", "jax"):
         assert spread("cuda", backend, 3) == [[f"cuda:{r % count}"]
                                               for r in range(3)]
-    buckets = TorchMeshBackend.B_BUCKETS
     for n in (1, 2, 3):
         ranks = spread("cuda", "mesh", n)
         for devs in ranks:
-            assert all(b % len(devs) == 0 for b in buckets), devs
             assert len(set(devs)) == len(devs)
         cards = [d for devs in ranks for d in devs]
         if count >= n:
             assert len(set(cards)) == len(cards), ranks
             per = len(ranks[0])
-            assert per & (per - 1) == 0 and per <= count // n < 2 * per
+            assert per == count // n
             assert ranks == [[f"cuda:{c}" for c in range(r * per,
                                                           (r + 1) * per)]
                              for r in range(n)]
@@ -228,14 +226,17 @@ def test_rank_devices(monkeypatch, count):
 
 
 def test_rank_devices_refuses_indivisible(monkeypatch):
-    """More cards per rank than the batch buckets divide by raises
-    ValueError naming the count, as TorchMeshBackend does."""
+    """A mesh of any count of cards is taken (launches round their rows up
+    to it), and a payload whose rows do not split over the devices raises
+    ValueError naming the count."""
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1024)
-    with pytest.raises(ValueError, match="512 devices"):
-        multihost.rank_devices("cuda", "mesh", 0, 2)
+    assert multihost.rank_devices("cuda", "mesh", 1, 3) == [
+        f"cuda:{c}" for c in range(341, 682)]
+    mesh = TorchMeshBackend(Settings(), Settings().max_mismatch(),
+                            np.zeros(1000, np.int8), ["cpu"] * 6)
+    assert mesh.dp == 6 and mesh._rows(7) == 12
     with pytest.raises(ValueError, match="6 devices"):
-        TorchMeshBackend(Settings(), Settings().max_mismatch(),
-                         np.zeros(1000, np.int8), ["cpu"] * 6)
+        mesh._launch(None, np.zeros((8, 4), np.int8), {})
 
 
 def test_spool_removed_when_store_fails(text_scene, monkeypatch):
