@@ -11,8 +11,8 @@ Phases, in order; any failure exits non-zero:
    and no jax (checked again at the end);
 1. environment: torch, CUDA and nvcc versions, the card's name and power
    limit, the host's CPU model and core count;
-2. build: the CUDA scan kernel (csrc/scan.cu), the fused close/far kernels
-   (csrc/fused_search.cu; both include csrc/scan_walk.cuh), the shard
+2. build: the CUDA scan kernel (csrc/scan.cu), the fused close/far/far_win
+   kernels (csrc/fused_search.cu; both include csrc/scan_walk.cuh), the shard
    kernel of the window-parallel search (csrc/sharded_search.cu) and, where
    its source is at hand (``--parent-kernel``, or ``git show`` of
    PARENT_REV), the shard kernel it replaced, from the checkout's sources,
@@ -46,45 +46,50 @@ Phases, in order; any failure exits non-zero:
    (pindel_tpu_torch/testing/golden_reports.json, kept current by
    tests/test_torch_pipeline.py and tests/test_torch_bam.py);
 4b. the CLI on small BAM scenes (BAM + BreakDancer discovery, -q, -z, -g):
-   reports byte-identical to the golden files, the scan kernel launched,
-   the explicit-window kernel's rows above 0 where evidence windows guide
-   the search, and the native BAM and RP libraries loaded from
-   pindel_tpu_torch/build/native/;
+   reports byte-identical to the golden files, the search kernels
+   launched, the explicit-window kernel's rows above 0 where evidence
+   windows guide the search and ``pt_far_win`` launched wherever they are,
+   and the native BAM and RP libraries loaded from
+   pindel_tpu_torch/build/native/.  On every CLI path (phases 4-8, 12) the
+   standalone scan kernel must launch no time: K1's walk runs inside the
+   fused kernels;
 5. scene 1 of bench.py at full size (50,000 reads over a 6 Mb chromosome,
    -T 4) and 6. scene 2 (BAM input with a BreakDancer calls file: 12,000
    read pairs over a 2 Mb chromosome, -T 4), each: a first run that
-   records every search call the main path makes (K2, K3 and K4, and
-   K4's scan calls), a run with the plain versions in place of the
-   kernels (the plain scan, and K2/K3's ``_ref`` bodies over it), then
-   three timed runs whose reports must be byte-identical to the plain
-   run's (scene 2's also to the reference's sha256 digests in
-   pindel_tpu_torch/testing/scene2_digests.json), with the median wall
-   time, rate, fallback ratio, launches per kernel (``pt_close`` and
-   ``pt_far`` must launch) and phase timers; then K1 at every recorded
-   call's shapes (K4's scan calls, and the scan calls the torch
-   composition K2/K3 replaced makes for each recorded K2/K3 call) is held
-   against the plain version, its rows are classed by seed count (the
-   kernel walks only the seeded lanes of a row with two or more seeds,
-   every lane of the others), each shape is timed, and each call's kernel
-   time is split between the two branches' rows;
-6b. ``pt_close``/``pt_far`` (K2/K3, csrc/fused_search.cu) bit-equal to the
-   plain versions (``_close_kernel_ref``/``_far_kernel_ref`` over the plain
-   scan) at every K2/K3 call phases 5 and 6 recorded and on every case of
-   testing/fused_cases.py; the largest call of each scene timed in turns
-   with the composition it replaced (kernel, composition, composition,
-   kernel; CUDA events) and once as the plain version, beside its bound
-   (``measure.fused_bound``, with the earlier count); K4 whole at its
-   largest call beside the time of the scan calls it makes;
+   records every search call the main path makes (K2, K3 and K4), a run
+   with the plain versions in place of the kernels (the ``_ref`` bodies
+   over the plain scan), then three timed runs whose reports must be
+   byte-identical to the plain run's (scene 2's also to the reference's
+   sha256 digests in pindel_tpu_torch/testing/scene2_digests.json), with
+   the median wall time, rate, fallback ratio, launches per kernel
+   (``pt_close`` and ``pt_far`` must launch, ``pt_far_win`` once a K4
+   call, the standalone scan never) and phase timers; then K1 at every
+   recorded call's shapes (the scan calls the torch composition each
+   fused kernel replaced makes for its recorded call) is held against the
+   plain version, its rows are classed by seed count (the kernel walks
+   only the seeded lanes of a row with two or more seeds, every lane of
+   the others), each shape is timed, and each call's kernel time is split
+   between the two branches' rows;
+6b. ``pt_close``/``pt_far``/``pt_far_win`` (K2/K3/K4, csrc/fused_search.cu)
+   bit-equal to the plain versions (``_close_kernel_ref``/
+   ``_far_kernel_ref``/``_far_win_kernel_ref`` over the plain scan) at
+   every fused call phases 5 and 6 recorded and on every case of
+   testing/fused_cases.py (lmax 128 to 512, K4's windows past either end,
+   empty and at the widest buckets); the largest call of each kernel and
+   scene timed in turns with the composition it replaced (kernel,
+   composition, composition, kernel; CUDA events) and once as the plain
+   version, beside its bound (``measure.fused_bound``, with the earlier
+   count);
 7. scenes 1 and 2 with ``--backend mesh`` (the data-parallel backend,
    parallel/mesh_fused.py), over all visible cards (the CLI) and over
    ``["cuda:0", "cuda:0"]`` (two shards on one card, through
    ``run_files``): for each device list a first run that records every
-   shard's search calls (K1 at their shapes held against the plain version
-   on the card it ran on, each shard shape timed; each K2/K3 shard call's
-   fused kernel held against the composition over those K1 calls); then
-   three timed runs of each list in turns with three fused runs (fused,
-   mesh, mesh, then the reverse), every listed card launching
-   ``pt_close``/``pt_far``, reports
+   shard's search calls (each K2/K3/K4 shard call's fused kernel held
+   against the composition it replaced, and the composition's K1 calls
+   against the plain version on the card it ran on, each shape timed);
+   then three timed runs of each list in turns with three fused runs
+   (fused, mesh, mesh, then the reverse), every listed card launching
+   the fused kernels, reports
    byte-identical to the kernel runs of 5 and 6 (scene 2's also to the
    digests), with the median wall time, rate, scan launches per card and
    phase timers of each;
@@ -110,7 +115,10 @@ Phases, in order; any failure exits non-zero:
       shard tiles, backward lanes, strict mismatches next to step 0,
       columns past 32768) and random rows, every shard at wp 1, 2, 4, 8,
       each also with its rows split over blocks and with its histograms in
-      device memory;
+      device memory; then testing/lane_cases.py:dead_level_case under
+      budgets at and past the DEAD level (127), every shard against the
+      twin and ``sharded_search`` over ``["cuda:0"] * 8`` against the
+      twin over the CPU at three grids;
    b. ``TorchShardedBackend`` under a ``Searcher`` on a small scene against
       the NumPy oracle, over ``["cuda:0"] * 8`` at (dp, wp) = (2, 4),
       (1, 8), (4, 2) and over every visible card;
@@ -146,16 +154,18 @@ Phases, in order; any failure exits non-zero:
 12. scene 3 (testing/scenes.py:build_scene3: about 90,750 BAM read pairs
    with BreakDancer calls over 15 Mb, three 5 Mb windows, in the shape of
    the reference pindel's colousingbd15 run) once through the CLI on the
-   card: K1 at every recorded call's shapes (as in 5) held against the plain
-   version (max_abs_err 0), each shape timed; the reports equal to the
-   reference's digests (testing/scene3_digests.json); the bench's gate
+   card: K1 at every recorded call's shapes (the compositions', as in 5)
+   held against the plain version (max_abs_err 0), each shape timed; the
+   reports equal to the reference's digests (testing/scene3_digests.json);
+   the bench's gate
    (``pindel_tpu_torch.bench.problems``: digests, a non-empty ``_D``,
    fallback at most 1%, three windows, the search kernels launched and
-   ``_far_win_kernel`` rows above 0); the windows, K4 rows, legacy rows,
-   shard kernel launches, search kernel launches and peak card memory
-   printed, with each window's reads and times; then every K2/K3 call of
-   the run held against the plain versions and the largest of each, and
-   K4, timed as in 6b.
+   ``_far_win_kernel`` rows above 0, ``pt_far_win`` launched for them);
+   ``pt_far_win`` launched once a K4 call and the standalone scan never;
+   the windows, K4 rows, legacy rows, shard kernel launches, search kernel
+   launches and peak card memory printed, with each window's reads and
+   times; then every K2/K3/K4 call of the run held against the plain
+   versions and the largest of each timed as in 6b.
 
 The script imports torch, numpy and pindel_tpu_torch, and no jax.
 ``--profile-dir`` also traces one run of each full-size scene with
@@ -649,12 +659,9 @@ def check_tools(tools, launches1: int, launches2: int) -> None:
         fail(f"bench: search kernel launches {b['launches']}, phases 5 and 6 "
              f"{launches1} and {launches2}")
     for call, c in tools["kernel_bench"]["calls"].items():
-        # K2 and K3: one fused launch, the composition timed beside it;
-        # K4: its scan launches
-        fused = c["parent_ms"] is not None
+        # K2, K3 and K4: one fused launch, the composition timed beside it
         if not (c["ms"] > 0 and c["k1_ms"] > 0 and c["bound_ms"] > 0
-                and c["launches"] == (1 if fused else c["k1_calls"]) > 0
-                and (not fused or c["parent_ms"] > 0)):
+                and c["launches"] == 1 and c["parent_ms"] > 0):
             fail(f"kernel_bench {call}: {c}")
     for name in ("profile_bench", "profile_bench_scene3"):
         p = tools[name]
@@ -1068,22 +1075,19 @@ def main() -> int:
     FUSED = ("_close_kernel", "_far_kernel", "_far_win_kernel")
     fused_kernels = {name: getattr(engine_fused, name) for name in FUSED}
     PLAIN = {"_close_kernel": engine_fused._close_kernel_ref,
-             "_far_kernel": engine_fused._far_kernel_ref}
+             "_far_kernel": engine_fused._far_kernel_ref,
+             "_far_win_kernel": engine_fused._far_win_kernel_ref}
+    WRAPPER = {"_close_kernel": "pt_close", "_far_kernel": "pt_far",
+               "_far_win_kernel": "pt_far_win"}
 
     def recorded(run):
         """``run()`` with every search call of the main path recorded (on
         each shard's own card): the fused calls (K2, K3, K4) as (name,
-        chromcat, payload, maxmm, static) and the scan calls K4 makes.
-        Returns its result, K4's scan calls and the fused calls; K1's calls
-        at the main path's shapes are K4's and, for each K2/K3 call, those
-        of the composition it replaced (``composition_calls``)."""
-        scans, fused = [], []
-        kernel_scan = engine_fused.scan_rows
+        chromcat, payload, maxmm, static).  Returns its result and the
+        fused calls; K1's calls at the main path's shapes are those of the
+        composition each fused kernel replaced (``composition_calls``)."""
+        fused = []
         real = {name: getattr(engine_fused, name) for name in FUSED}
-
-        def recording(*a, **kw):
-            scans.append(([x.clone() for x in a], dict(kw)))
-            return kernel_scan(*a, **kw)
 
         def recording_call(name):
             def call(chromcat, payload, maxmm, **static):
@@ -1092,21 +1096,19 @@ def main() -> int:
                 return real[name](chromcat, payload, maxmm, **static)
             return call
 
-        engine_fused.scan_rows = recording
         for name in FUSED:
             setattr(engine_fused, name, recording_call(name))
         try:
             result = run()
         finally:
-            engine_fused.scan_rows = kernel_scan
             for name, fn in real.items():
                 setattr(engine_fused, name, fn)
-        return result, scans, fused
+        return result, fused
 
     def composition_calls(fused):
         """The scan calls the torch composition (``_close_kernel_ref`` /
-        ``_far_kernel_ref`` over K1) makes for each recorded K2/K3 call,
-        on its card."""
+        ``_far_kernel_ref`` / ``_far_win_kernel_ref`` over K1) makes for
+        each recorded fused call, on its card."""
         out = []
         kernel_scan = engine_fused.scan_rows
 
@@ -1118,15 +1120,14 @@ def main() -> int:
         try:
             with torch.inference_mode():
                 for name, chromcat, payload, maxmm, static in fused:
-                    if name in PLAIN:
-                        with torch.cuda.device(payload.device):
-                            PLAIN[name](chromcat, payload, maxmm, **static)
+                    with torch.cuda.device(payload.device):
+                        PLAIN[name](chromcat, payload, maxmm, **static)
         finally:
             engine_fused.scan_rows = kernel_scan
         return out
 
     def plain_call(name, chromcat, payload, maxmm, static):
-        """The plain version of a K2/K3 call: its ``_ref`` body over the
+        """The plain version of a fused call: its ``_ref`` body over the
         plain scan, pure PyTorch on the card."""
         kernel_scan = engine_fused.scan_rows
         engine_fused.scan_rows = scan_rows_ref
@@ -1139,7 +1140,25 @@ def main() -> int:
         """The search kernels' launches since reset_counts()."""
         return dict(scan=scan_cuda.LAUNCHES,
                     close=fused_cuda.LAUNCHES_BY_KERNEL["close"],
-                    far=fused_cuda.LAUNCHES_BY_KERNEL["far"])
+                    far=fused_cuda.LAUNCHES_BY_KERNEL["far"],
+                    far_win=fused_cuda.LAUNCHES_BY_KERNEL["far_win"])
+
+    def check_path(label, k4_rows, k4_calls=None):
+        """The launches of a CLI run since reset_counts(): K1's standalone
+        scan never (its walk runs inside the fused kernels), ``pt_far_win``
+        wherever K4 searched rows, once a K4 call (``k4_calls``, where the
+        calls were counted)."""
+        counts = launch_counts()
+        if counts["scan"]:
+            fail(f"{label}: the standalone scan launched {counts['scan']} "
+                 "times on a CLI path")
+        if k4_rows and not counts["far_win"]:
+            fail(f"{label}: K4 searched {k4_rows} rows but pt_far_win never "
+                 "launched")
+        if k4_calls is not None and counts["far_win"] != k4_calls:
+            fail(f"{label}: pt_far_win launched {counts['far_win']} times "
+                 f"for {k4_calls} K4 calls")
+        return counts
 
     def check_calls(label, calls, split=False):
         """Every recorded scan call against the plain version on the card
@@ -1228,21 +1247,21 @@ def main() -> int:
         """5/6: record, plain-scan, timed and per-call phases of one
         full-size scene; returns the median run and the scan checks."""
         # a. first run (cold): record every search call of the main path
-        first_s, k4_calls, fused = recorded(
-            lambda: run_cli(port_main, argv_of("rec")))
-        # b. the plain versions in the kernels' place (the plain scan, and
-        # K2/K3's _ref bodies over it): the reference reports
+        first_s, fused = recorded(lambda: run_cli(port_main, argv_of("rec")))
+        k4_calls = sum(c[0] == "_far_win_kernel" for c in fused)
+        # b. the plain versions in the kernels' place (the _ref bodies over
+        # the plain scan): the reference reports
         kernel_scan = engine_fused.scan_rows
         engine_fused.scan_rows = scan_rows_ref
-        engine_fused._close_kernel = PLAIN["_close_kernel"]
-        engine_fused._far_kernel = PLAIN["_far_kernel"]
+        for name in FUSED:
+            setattr(engine_fused, name, PLAIN[name])
         before = fused_cuda.search_launches()
         try:
             plain_s = run_cli(port_main, argv_of("plain"))
         finally:
             engine_fused.scan_rows = kernel_scan
-            engine_fused._close_kernel = fused_kernels["_close_kernel"]
-            engine_fused._far_kernel = fused_kernels["_far_kernel"]
+            for name in FUSED:
+                setattr(engine_fused, name, fused_kernels[name])
         if fused_cuda.search_launches() != before:
             fail(f"{label}: the plain run launched a kernel")
         want = reports(prefix_of(argv_of("plain")))
@@ -1251,8 +1270,8 @@ def main() -> int:
             fail(f"{label}: the first kernel run's reports differ from the "
                  "plain run's")
         log(f"{label}: first run {first_s:.3f} s ({len(fused)} K2/K3/K4 "
-            f"calls and K4's {len(k4_calls)} scan calls recorded), plain "
-            f"run {plain_s:.3f} s  [{card}]")
+            f"calls recorded, {k4_calls} of them K4's), plain run "
+            f"{plain_s:.3f} s  [{card}]")
 
         # c. timed runs through the kernel
         runs = []
@@ -1275,6 +1294,8 @@ def main() -> int:
                     and fused_cuda.LAUNCHES_BY_KERNEL["far"]):
                 fail(f"{label} run {i}: pt_close/pt_far launches "
                      f"{dict(fused_cuda.LAUNCHES_BY_KERNEL)}")
+            check_path(f"{label} run {i}", engine_fused.FAR_WIN_ROWS,
+                       k4_calls)
             if reports(prefix_of(argv)) != want:
                 fail(f"{label} run {i}: reports differ from the plain "
                      "run's")
@@ -1297,11 +1318,12 @@ def main() -> int:
                                  key=lambda kv: -kv[1]):
             log(f"  phase {pname:<52s} {sec:9.3f} s  [{card}]")
 
-        # d. K1 at every recorded call's shapes: kernel vs plain, time per
-        # shape
-        scan = check_calls(label, k4_calls + composition_calls(fused),
-                           split=True)
-        del k4_calls
+        log(f"{label}: standalone scan (scan_rows) launches on the path "
+            f"{med['kernels']['scan']}, pt_far_win {med['kernels']['far_win']}"
+            f" for {k4_calls} K4 calls  [{card}]")
+        # d. K1 at every recorded call's shapes (as the compositions the
+        # fused kernels replaced call it): kernel vs plain, time per shape
+        scan = check_calls(label, composition_calls(fused), split=True)
         torch.cuda.empty_cache()
 
         if args.profile_dir:
@@ -1322,6 +1344,7 @@ def main() -> int:
                     launches=med["launches"], search=med["search"],
                     close_launches=med["kernels"]["close"],
                     far_launches=med["kernels"]["far"],
+                    far_win_launches=med["kernels"]["far_win"],
                     far_win_rows=med["far_win_rows"], wall=med["wall"],
                     want=want, fused=fused)
 
@@ -1343,6 +1366,7 @@ def main() -> int:
             check_run(f"scene {scene}", fused_cuda.search_launches())
             if not launches["close"]:
                 fail(f"scene {scene}: pt_close never launched")
+            check_path(f"scene {scene}", engine_fused.FAR_WIN_ROWS)
             log(f"small scene {scene} {flags}: {n} reads, {len(port)} "
                 f"reports byte-identical to numpy, launches {launches}, "
                 f"fallback {g_fallback.fallback}/{g_fallback.total}")
@@ -1361,6 +1385,7 @@ def main() -> int:
                       device_run="-g" not in spec.flags)
             if spec.far_win and engine_fused.FAR_WIN_ROWS == 0:
                 fail(f"BAM scene {scene}: _far_win_kernel searched no read")
+            check_path(f"BAM scene {scene}", engine_fused.FAR_WIN_ROWS)
             log(f"small BAM scene {scene} {list(spec.flags)}: {len(port)} "
                 f"reports byte-identical to numpy, launches "
                 f"{launch_counts()}, _far_win_kernel rows "
@@ -1427,19 +1452,16 @@ def main() -> int:
             fail("scene 2: _far_win_kernel searched no read")
         max_err = max(max_err, scene2["max_abs_err"])
 
-        # ---- 6b. K2 and K3 on the card: pt_close/pt_far bit-equal to the
-        # plain versions at every K2/K3 call of scenes 1 and 2 (phases 5
-        # and 6 recorded them; scene 3's in phase 12) and on the edge cases
-        # of testing/fused_cases.py; the largest call of each timed in turns
-        # with the composition it replaced, beside its bound; K4 whole at
-        # its largest call, beside the scan calls it makes
+        # ---- 6b. K2, K3 and K4 on the card: pt_close/pt_far/pt_far_win
+        # bit-equal to the plain versions at every fused call of scenes 1
+        # and 2 (phases 5 and 6 recorded them; scene 3's in phase 12) and on
+        # the edge cases of testing/fused_cases.py; the largest call of each
+        # timed in turns with the composition it replaced, beside its bound
         def check_fused(label, fused):
             err_all = 0
             out = {}
             with torch.inference_mode():
                 for name, chromcat, payload, maxmm, static in fused:
-                    if name not in PLAIN:
-                        continue
                     with torch.cuda.device(payload.device):
                         got = fused_kernels[name](chromcat, payload, maxmm,
                                                   **static)
@@ -1451,7 +1473,7 @@ def main() -> int:
                     log(f"{label} {name} call, {payload.shape[0]} reads: "
                         f"kernel vs plain max_abs_err={err}")
                 if err_all:
-                    fail(f"{label}: pt_close/pt_far disagree with the plain "
+                    fail(f"{label}: the fused kernels disagree with the plain "
                          f"versions (max {err_all})")
                 for name in FUSED:
                     mine = [c for c in fused if c[0] == name]
@@ -1464,69 +1486,40 @@ def main() -> int:
                         return fused_kernels[name](chromcat, payload, maxmm,
                                                    **static)
 
-                    row = dict(rows=int(payload.shape[0]), calls=len(mine))
-                    if name in PLAIN:
-                        def comp():
-                            return PLAIN[name](chromcat, payload, maxmm,
-                                               **static)
+                    def comp():
+                        return PLAIN[name](chromcat, payload, maxmm, **static)
 
-                        # in turns: kernel, composition, composition, kernel
-                        t = [time_ms(f, 5) for f in (call, comp, comp, call)]
-                        plain = time_ms(lambda: plain_call(
-                            name, chromcat, payload, maxmm, static), 1)
-                        b = fused_bound(name, chromcat, payload, maxmm,
-                                        static)
-                        row.update(ms=min(t[0], t[3]),
-                                   parent_ms=min(t[1], t[2]), plain_ms=plain,
-                                   bound_ms=b["bound_ms"],
-                                   bound_by=b["bound_by"],
-                                   earlier_bound_ms=b["composition_bound_ms"],
-                                   rows_scanned=b["rows_scanned"],
-                                   rows_all=b["rows_all"],
-                                   max_abs_err=err_all)
-                        log(f"{label} {name}: largest of {len(mine)} calls, "
-                            f"{payload.shape[0]} reads: kernel "
-                            f"{row['ms']:.4f} ms ({t[0]:.4f}, {t[3]:.4f}), "
-                            f"the composition it replaced "
-                            f"{row['parent_ms']:.4f} ms ({t[1]:.4f}, "
-                            f"{t[2]:.4f}), {row['parent_ms'] / row['ms']:.2f}"
-                            f"x; plain {plain:.3f} ms; bound "
-                            f"{row['bound_ms']:.4f} ms ({row['bound_by']}, "
-                            f"{row['rows_scanned']} of {row['rows_all']} scan "
-                            f"rows), {row['bound_ms'] / row['ms']:.1%} of "
-                            f"it; the earlier count "
-                            f"{row['earlier_bound_ms']:.4f} ms  [{card}]")
-                    else:
-                        scans = []
-                        real_scan = engine_fused.scan_rows
-
-                        def recording_scan(*a, **kw):
-                            scans.append((a, kw))
-                            return real_scan(*a, **kw)
-
-                        ms = time_ms(call, 5)
-                        engine_fused.scan_rows = recording_scan
-                        try:
-                            call()
-                        finally:
-                            engine_fused.scan_rows = real_scan
-                        scan_ms = sum(time_ms(
-                            lambda a=a, kw=kw: scan_cuda.scan_rows_cuda(
-                                *a, **kw), 5) for a, kw in scans)
-                        row.update(ms=ms, scan_ms=scan_ms, scans=len(scans))
-                        log(f"{label} {name}: largest of {len(mine)} calls, "
-                            f"{payload.shape[0]} rows: whole call {ms:.4f} ms "
-                            f"(CUDA events around it), its {len(scans)} scan "
-                            f"calls {scan_ms:.4f} ms ({scan_ms / ms:.1%})  "
-                            f"[{card}]")
-                        del scans
+                    # in turns: kernel, composition, composition, kernel
+                    t = [time_ms(f, 5) for f in (call, comp, comp, call)]
+                    plain = time_ms(lambda: plain_call(
+                        name, chromcat, payload, maxmm, static), 1)
+                    b = fused_bound(name, chromcat, payload, maxmm, static)
+                    row = dict(rows=int(payload.shape[0]), calls=len(mine),
+                               ms=min(t[0], t[3]), parent_ms=min(t[1], t[2]),
+                               plain_ms=plain, bound_ms=b["bound_ms"],
+                               bound_by=b["bound_by"],
+                               earlier_bound_ms=b["composition_bound_ms"],
+                               rows_scanned=b["rows_scanned"],
+                               rows_all=b["rows_all"], max_abs_err=err_all)
+                    log(f"{label} {name} ({WRAPPER[name]}): largest of "
+                        f"{len(mine)} calls, {payload.shape[0]} reads: kernel "
+                        f"{row['ms']:.4f} ms ({t[0]:.4f}, {t[3]:.4f}), "
+                        f"the composition it replaced "
+                        f"{row['parent_ms']:.4f} ms ({t[1]:.4f}, "
+                        f"{t[2]:.4f}), {row['parent_ms'] / row['ms']:.2f}"
+                        f"x; plain {plain:.3f} ms; bound "
+                        f"{row['bound_ms']:.4f} ms ({row['bound_by']}, "
+                        f"{row['rows_scanned']} of {row['rows_all']} scan "
+                        f"rows), {row['bound_ms'] / row['ms']:.1%} of "
+                        f"it; the earlier count "
+                        f"{row['earlier_bound_ms']:.4f} ms  [{card}]")
                     out[name] = row
             torch.cuda.empty_cache()
             return out
 
         whole = {"scene1": check_fused("scene 1", scene1.pop("fused")),
                  "scene2": check_fused("scene 2", scene2.pop("fused"))}
-        edge_err = 0
+        edge_err = dict.fromkeys(FUSED, 0)
         with torch.inference_mode():
             for case in FUSED_CASES:
                 name, chrom_c, maxmm_c, payload_c, static = fused_case(case)
@@ -1537,12 +1530,13 @@ def main() -> int:
                 got = fused_kernels[name](*args_c, **static)
                 want = plain_call(name, *args_c, static)
                 err = int((got.long() - want.long()).abs().max())
-                edge_err = max(edge_err, err)
-                log(f"edge case {case} ({name}, {payload_c.shape[0]} reads): "
+                edge_err[name] = max(edge_err[name], err)
+                log(f"edge case {case} ({WRAPPER[name]}, "
+                    f"{payload_c.shape[0]} reads, lmax {static['lmax']}): "
                     f"kernel vs plain max_abs_err={err}")
-        if edge_err:
-            fail(f"pt_close/pt_far disagree with the plain versions on the "
-                 f"edge cases (max {edge_err})")
+        if any(edge_err.values()):
+            fail(f"the fused kernels disagree with the plain versions on the "
+                 f"edge cases (max by kernel {edge_err})")
         # engine_fused._Download allocates a pinned host buffer per call:
         # its host time at the largest K2 output (PyTorch's caching host
         # allocator hands back freed blocks)
@@ -1589,15 +1583,15 @@ def main() -> int:
                 ("scene1", "scene 1", argv1, n1, "reads", scene1),
                 ("scene2", "scene 2", argv2, n2, "read pairs", scene2)):
             # a first run of each device list (its warm-up) records every
-            # shard's search calls: K1's at their shapes each held against
-            # the plain scan on the card it ran on, and each K2/K3 shard
-            # call's fused kernel against the composition over those K1
-            # calls (so, through them, against the plain version)
+            # shard's search calls: each K2/K3/K4 shard call's fused kernel
+            # held against the composition it replaced, and the
+            # composition's K1 calls against the plain scan, on the card it
+            # ran on (so, through them, against the plain version)
             for cfg, devices in MESH_LISTS.items():
                 mlabel = f"{label} mesh {cfg}"
                 argv = argv_of(f"rec_{cfg}")
-                _, calls, fused = recorded(lambda: run_backend(argv, devices))
-                calls += composition_calls(fused)
+                _, fused = recorded(lambda: run_backend(argv, devices))
+                calls = composition_calls(fused)
                 if reports(prefix_of(argv)) != base["want"]:
                     fail(f"{mlabel} recorded run: reports differ from the "
                          "fused kernel runs'")
@@ -1610,18 +1604,20 @@ def main() -> int:
                 ferr = 0
                 with torch.inference_mode():
                     for name, chromcat, payload, maxmm, static in fused:
-                        if name in PLAIN:
-                            with torch.cuda.device(payload.device):
-                                got = fused_kernels[name](
-                                    chromcat, payload, maxmm, **static)
-                                want = PLAIN[name](chromcat, payload, maxmm,
-                                                   **static)
-                                ferr = max(ferr, int(
-                                    (got.long() - want.long()).abs().max()))
-                log(f"{mlabel}: pt_close/pt_far on {len(fused)} shard calls "
-                    f"against the composition: max_abs_err={ferr}")
+                        with torch.cuda.device(payload.device):
+                            got = fused_kernels[name](
+                                chromcat, payload, maxmm, **static)
+                            want = PLAIN[name](chromcat, payload, maxmm,
+                                               **static)
+                            ferr = max(ferr, int(
+                                (got.long() - want.long()).abs().max()))
+                by_name = {WRAPPER[n]: sum(c[0] == n for c in fused)
+                           for n in FUSED}
+                log(f"{mlabel}: the fused kernels on {len(fused)} shard calls "
+                    f"({by_name}) against the composition: "
+                    f"max_abs_err={ferr}")
                 if ferr:
-                    fail(f"{mlabel}: pt_close/pt_far disagree (max {ferr})")
+                    fail(f"{mlabel}: the fused kernels disagree (max {ferr})")
                 del calls, fused
                 torch.cuda.empty_cache()
             runs = {cfg: [] for cfg, _ in configs}
@@ -1637,8 +1633,9 @@ def main() -> int:
                     by_card = dict(sorted(
                         fused_cuda.LAUNCHES_BY_DEVICE.items()))
                     check_run(mlabel, fused_cuda.search_launches())
+                    check_path(mlabel, engine_fused.FAR_WIN_ROWS)
                     if set(by_card) != cards_of(devices):
-                        fail(f"{mlabel}: pt_close/pt_far launches by card "
+                        fail(f"{mlabel}: fused kernel launches by card "
                              f"{by_card}, expected every card of "
                              f"{sorted(cards_of(devices))}")
                     got = reports(prefix_of(argv))
@@ -1652,7 +1649,7 @@ def main() -> int:
                                            kernels=kernels, by_card=by_card,
                                            phases=g_timer.items()))
                     log(f"{mlabel}: wall {wall:.3f} s, {n / wall:.1f} "
-                        f"{unit}/s, launches {kernels}, pt_close/pt_far by "
+                        f"{unit}/s, launches {kernels}, fused kernels by "
                         f"card {by_card}  [{card}]")
             fused_med = statistics.median(r["wall"] for r in runs["fused"])
             for cfg, devices in configs:
@@ -1664,7 +1661,7 @@ def main() -> int:
                     f"{med['wall']:.3f} s of {TIMED_RUNS} in turns "
                     f"({n / med['wall']:.1f} {unit}/s), reports "
                     f"byte-identical to the fused runs of phase 5/6, "
-                    f"launches {med['kernels']}, pt_close/pt_far by card "
+                    f"launches {med['kernels']}, fused kernels by card "
                     f"{med['by_card']}  [{card}]")
                 top = sorted(med["phases"].items(), key=lambda kv: -kv[1])
                 for pname, sec in top[:8]:
@@ -1676,6 +1673,7 @@ def main() -> int:
                         launches=med["launches"],
                         close_launches=med["kernels"]["close"],
                         far_launches=med["kernels"]["far"],
+                        far_win_launches=med["kernels"]["far_win"],
                         fused_launches_by_card={
                             str(k): v for k, v in med["by_card"].items()},
                         wall=med["wall"], fused_wall=fused_med)
@@ -1745,11 +1743,17 @@ def main() -> int:
         def launches_of(ranks, kernel="scan"):
             return sum(r["launches_by_kernel"].get(kernel, 0) for r in ranks)
 
-        def counts_of(ranks):
-            """A path's launches per kernel (``launches``: K1's)."""
-            return dict(launches=launches_of(ranks),
-                        close_launches=launches_of(ranks, "close"),
-                        far_launches=launches_of(ranks, "far"))
+        def counts_of(ranks, label=None):
+            """A path's launches per kernel (``launches``: K1's standalone
+            scan's, which must be 0 where ``label`` names the path)."""
+            counts = dict(launches=launches_of(ranks),
+                          close_launches=launches_of(ranks, "close"),
+                          far_launches=launches_of(ranks, "far"),
+                          far_win_launches=launches_of(ranks, "far_win"))
+            if label is not None and counts["launches"]:
+                fail(f"{label}: the standalone scan launched "
+                     f"{counts['launches']} times on a CLI path")
+            return counts
 
         hosts_paths = {}
         # a. scene 1 at --hosts 2 over both transports, rank 0's scan
@@ -1758,8 +1762,8 @@ def main() -> int:
             label = f"scene 1 --hosts 2 --dist {dist}"
             argv = argv1(f"hosts2_{dist}")
             reset_counts()
-            wall, calls, fused = recorded(lambda: run_hosts(argv, 2, dist))
-            calls += composition_calls(fused)
+            wall, fused = recorded(lambda: run_hosts(argv, 2, dist))
+            calls = composition_calls(fused)
             if reports(prefix_of(argv)) != scene1["want"]:
                 fail(f"{label}: reports differ from the kernel runs of "
                      "phase 5")
@@ -1768,7 +1772,7 @@ def main() -> int:
                 fail(f"{label}: a rank owned no window: {ranks}")
             log(f"{label}: wall {wall:.3f} s, {n1 / wall:.1f} reads/s, "
                 f"reports byte-identical to phase 5, launches "
-                f"{counts_of(ranks)}  [{card}]")
+                f"{counts_of(ranks, label)}  [{card}]")
             log_ranks(label, ranks)
             scan = check_calls(f"{label} rank 0", calls)
             max_err = max(max_err, scan["max_abs_err"])
@@ -1790,8 +1794,10 @@ def main() -> int:
         ranks = rank_records(label, 2)
         if ranks[1]["windows"]:
             fail(f"{label}: rank 1 owned windows {ranks[1]['windows']}")
+        if not counts_of(ranks, label)["far_win_launches"]:
+            fail(f"{label}: pt_far_win never launched")
         log(f"{label}: wall {wall:.3f} s, {n2 / wall:.1f} read pairs/s, "
-            f"reports byte-identical to phase 6 and the digests, scan "
+            f"reports byte-identical to phase 6 and the digests, "
             f"launches {counts_of(ranks)}  [{card}]")
         log_ranks(label, ranks)
         hosts_paths["scene2_hosts2_files"] = dict(
@@ -1822,7 +1828,7 @@ def main() -> int:
                                             phases=g_timer.items()))
                     log(f"{hlabel} --dist {dist} run {i}: wall {wall:.3f} s, "
                         f"{n / wall:.1f} {unit}/s, launches "
-                        f"{counts_of(ranks)}  [{card}]")
+                        f"{counts_of(ranks, hlabel)}  [{card}]")
                     log_ranks(f"{hlabel} run {i}", ranks)
             for hosts in counts:
                 walls = [r["wall"] for r in runs[hosts]]
@@ -1894,6 +1900,42 @@ def main() -> int:
                 f"{st['w_total']}, {len(errs)} shard calls at wp 1/2/4/8 "
                 f"(rows whole, split, histograms in device memory), "
                 f"max_abs_err={max(errs)}")
+        # testing/lane_cases.py:dead_level_case under budgets at and past
+        # the DEAD level: every shard at wp 1, 2, 4 and 8 against the twin,
+        # and the whole search over cuda:0 x 8 against it over the CPU
+        from pindel_tpu_torch.parallel.mesh import make_grid, sharded_search
+        for ms, tm in DEAD_LEVEL_BUDGETS:
+            arrays, st = dead_level_case(ms, tm)
+            case = [torch.from_numpy(np.array(arrays[j])).to(dev)
+                    for j in (0, 1, 2, 3, 4, 6, 7)]
+            t_levels, s_levels = sss.levels(ms, tm, st["lmax"])
+            errs = []
+            for wp in (1, 2, 4, 8):
+                wl = st["w"] // wp
+                for k in range(wp):
+                    errs.append(compare(case, dict(
+                        off=k * wl, w_total=st["w"], w_local=wl,
+                        lmax=st["lmax"], nl=st["nl"], mpm=st["mpm"],
+                        t_levels=t_levels, s_levels=s_levels),
+                        sharded_search_cuda.shard_partials_cuda,
+                        sss.shard_partials_ref))
+            static = dict(w_total=st["w"], lmax=st["lmax"], nl=st["nl"],
+                          mpm=st["mpm"], bp_start=st["bp_start"])
+            for dp9, wp9 in SHARD_GRIDS:
+                on_card = sharded_search(
+                    *arrays, grid=make_grid(["cuda:0"] * 8, dp9), **static)
+                on_cpu = sharded_search(
+                    *arrays, grid=make_grid(["cpu"] * 8, dp9), **static)
+                if not all(np.array_equal(a, b)
+                           for a, b in zip(on_card, on_cpu)):
+                    fail(f"K9 on dead-level rows ms={ms} tm={tm} at ({dp9}, "
+                         f"{wp9}): the card's outputs differ from the twin's")
+            k9_err = max(k9_err, max(errs))
+            log(f"shard kernel vs plain, dead-level rows ms={ms} tm={tm} "
+                f"(T={t_levels}, S={s_levels}): {len(errs)} shard calls at "
+                f"wp 1/2/4/8, max_abs_err={max(errs)}; sharded_search over "
+                f"cuda:0 x 8 at {SHARD_GRIDS} equal to the twin's over the "
+                f"CPU")
         if k9_err:
             fail(f"shard kernel disagrees with its plain twin (max {k9_err})")
 
@@ -2246,7 +2288,7 @@ def main() -> int:
             f"{time.monotonic() - t0:.1f} s")
         reset_counts()
         engine_jax.PLAIN_ON_CARD = 0
-        run3, k4_calls, fused3 = recorded(lambda: bench.run(
+        run3, fused3 = recorded(lambda: bench.run(
             scene3_spec, os.path.join(s3, "run"), torch.device("cuda:0")))
         c3 = run3["counters"]
         bad = bench.problems(scene3_spec, [run3], kernel=True)
@@ -2255,17 +2297,26 @@ def main() -> int:
         if engine_jax.PLAIN_ON_CARD:
             fail(f"scene 3: the plain _search_kernel ran "
                  f"{engine_jax.PLAIN_ON_CARD} times on the card")
+        k4_calls3 = sum(c[0] == "_far_win_kernel" for c in fused3)
+        if c3["scan_launches"]:
+            fail(f"scene 3: the standalone scan launched "
+                 f"{c3['scan_launches']} times on the CLI path")
+        if not k4_calls3 or c3["far_win_launches"] != k4_calls3:
+            fail(f"scene 3: pt_far_win launched {c3['far_win_launches']} "
+                 f"times for {k4_calls3} K4 calls")
         log(f"scene 3: wall {run3['wall']:.3f} s (first use), "
             f"{scene3_spec.n / run3['wall']:.1f} read pairs/s, reports "
             f"equal to the reference's digests, fallback "
             f"{g_fallback.fallback}/{g_fallback.total}, windows {c3['windows']} (visited "
             f"{c3['windows_visited']}), search kernel launches "
-            f"{c3['launches']} (scan {c3['scan_launches']}, pt_close/pt_far "
-            f"{c3['fused_launches']}), "
+            f"{c3['launches']} (standalone scan {c3['scan_launches']}, "
+            f"pt_close/pt_far/pt_far_win {c3['fused_launches']}: "
+            f"{c3['close_launches']}/{c3['far_launches']}/"
+            f"{c3['far_win_launches']} for {k4_calls3} K4 calls), "
             f"_far_win_kernel rows {c3['far_win_rows']}, legacy rows "
             f"{c3['legacy_rows']}, shard kernel launches "
             f"{c3['shard_launches']}, peak card memory "
-            f"{c3['peak_mib']:.1f} MiB (the recorded scan inputs "
+            f"{c3['peak_mib']:.1f} MiB (the recorded payloads "
             f"included)  [{card}]")
         for w in c3["by_window"]:
             log(f"  scene 3 window {w['index']} [{w['start']}, {w['end']}):"
@@ -2275,12 +2326,11 @@ def main() -> int:
         for pname, sec in sorted(run3["phases"].items(),
                                  key=lambda kv: -kv[1])[:12]:
             log(f"  phase {pname:<52s} {sec:9.3f} s  [{card}]")
-        scan3 = check_calls("scene 3", k4_calls + composition_calls(fused3))
+        scan3 = check_calls("scene 3", composition_calls(fused3))
         max_err = max(max_err, scan3["max_abs_err"])
-        del k4_calls
         torch.cuda.empty_cache()
-        # K2 and K3 at every call of scene 3 against the plain versions,
-        # the largest of each timed, K4 whole, as 6b
+        # K2, K3 and K4 at every call of scene 3 against the plain
+        # versions, the largest of each timed, as 6b
         whole["scene3"] = check_fused("scene 3", fused3)
         del fused3
     for name in ("bench", "profile_bench_scene3"):
@@ -2292,7 +2342,8 @@ def main() -> int:
     scene3 = dict({k: scan3[k] for k in SCAN_KEYS},
                   launches=c3["scan_launches"],
                   close_launches=c3["close_launches"],
-                  far_launches=c3["far_launches"], wall=run3["wall"],
+                  far_launches=c3["far_launches"],
+                  far_win_launches=c3["far_win_launches"], wall=run3["wall"],
                   far_win_rows=c3["far_win_rows"],
                   legacy_rows=c3["legacy_rows"],
                   windows=c3["windows"], peak_mib=c3["peak_mib"])
@@ -2305,17 +2356,32 @@ def main() -> int:
              f"{engine_jax.PLAIN_ON_CARD} times outside phase 3b's "
              "comparisons")
     paths = {label: {k: v[k] for k in ("launches", "close_launches",
-                                       "far_launches", *SCAN_KEYS, "wall")}
+                                       "far_launches", "far_win_launches",
+                                       *SCAN_KEYS, "wall")}
              for label, v in (("scene1", scene1), ("scene2", scene2))}
     paths["scene3"] = scene3
     paths.update(mesh_paths)
     paths.update(hosts_paths)
     # K1 at scene 1's largest shape (its largest K2 call's, as the
-    # composition calls it); launches over every path (K4's calls)
+    # composition calls it).  On the main path K1's walk (csrc/
+    # scan_walk.cuh) runs inside pt_close, pt_far and pt_far_win, and the
+    # standalone scan kernel launches on no path (checked 0 on each):
+    # launches counts the launches of the kernels that run the walk over
+    # every path, standalone_launches the scan kernel's own
+    fused_launches = {short: sum(v.get(f"{short}_launches", 0)
+                                 for v in paths.values())
+                      for short in ("close", "far", "far_win")}
+    standalone = sum(v["launches"] for v in paths.values())
+    if standalone:
+        fail(f"the standalone scan launched {standalone} times on the paths")
     kernels = [dict(name="scan_rows", route="cuda",
                     source="pindel_tpu_torch/csrc/scan.cu",
+                    walk_source="pindel_tpu_torch/csrc/scan_walk.cuh",
                     replaces="pindel_tpu/ops/pallas_scan.py:76",
-                    launches=sum(v["launches"] for v in paths.values()),
+                    launches=sum(fused_launches.values()),
+                    standalone_launches=standalone,
+                    walk_launches_by_kernel={
+                        f"pt_{k}": v for k, v in fused_launches.items()},
                     max_abs_err=max_err,
                     ms=scene1["ms"], plain_ms=scene1["plain_ms"],
                     bound_ms=scene1["bound_ms"],
@@ -2355,21 +2421,21 @@ def main() -> int:
         plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
         bound_by=top["bound_by"], bound_earlier_ms=top["bound_earlier_ms"],
         library_ms=None, paths=k9_paths))
-    # K2 and K3 at the largest call of each over scenes 1-3 (phases 6b and
-    # 12), timed in turns with the composition they replaced (parent_ms);
-    # launches over every path
+    # K2, K3 and K4 at the largest call of each over scenes 1-3 (phases 6b
+    # and 12), timed in turns with the composition they replaced
+    # (parent_ms); launches over every path
     for kname, short, line in (("_close_kernel", "close", 513),
-                               ("_far_kernel", "far", 626)):
+                               ("_far_kernel", "far", 626),
+                               ("_far_win_kernel", "far_win", 713)):
         rows = {scene: w[kname] for scene, w in whole.items() if kname in w}
         top = max(rows.values(), key=lambda r: r["rows"])
         kernels.append(dict(
             name=f"pt_{short}", route="cuda",
             source="pindel_tpu_torch/csrc/fused_search.cu",
             replaces=f"pindel_tpu/ops/engine_fused.py:{line}",
-            launches=sum(v.get(f"{short}_launches", 0)
-                         for v in paths.values()),
-            max_abs_err=max([edge_err] + [r["max_abs_err"]
-                                          for r in rows.values()]),
+            launches=fused_launches[short],
+            max_abs_err=max([edge_err[kname]] + [r["max_abs_err"]
+                                                 for r in rows.values()]),
             ms=top["ms"], parent_ms=top["parent_ms"],
             plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
             bound_by=top["bound_by"], share=top["bound_ms"] / top["ms"],

@@ -20,9 +20,9 @@ The gate: every run's reports must equal the JAX package's reports on the
 same scene, held as sha256 digests (``testing/scene{1,2,3}_digests.json``);
 the ``_D`` report must not be empty, at most ``MAX_FALLBACK`` of the reads
 may take the host oracle, the search kernels' launches (the scan's and
-the fused close/far kernels') must be equal from run to run, and on a card
-they must have launched and, on the
-BreakDancer scenes, ``_far_win_kernel`` (K4) must have searched rows.
+the fused kernels': close, far and far_win) must be equal from run to run,
+and on a card they must have launched and, on the BreakDancer scenes,
+``_far_win_kernel`` (K4) must have searched rows, through ``pt_far_win``.
 Scene 3 must also span its three windows.  A failed gate prints
 ``"value": 0.0`` and ``"correct": false`` and exits 1, whichever scene
 failed.  There is no ``vs_baseline``: ``bench.py`` times
@@ -41,7 +41,7 @@ window, as the reference's does); ``correct``, ``layers`` (each scene's
 coarse timer phases of its last timed run; they overlap, so they are
 phases, not shares of the wall), ``launches`` (the search kernels'
 launches in each scene's last run), ``counters`` (each scene's last run:
-search kernel launches, the scan's and the fused kernels' apart, windows
+search kernel launches, the scan's and each fused kernel's apart, windows
 visited and with bases, ``_far_win_kernel`` rows, legacy
 per-lane rows, shard kernel launches, peak card memory in MiB, and per
 window its reads and the seconds at which it was read in, staged and
@@ -169,6 +169,7 @@ def run(scene: Scene, prefix: str, dev) -> dict:
         fused_launches=fused_cuda.LAUNCHES,
         close_launches=fused_cuda.LAUNCHES_BY_KERNEL["close"],
         far_launches=fused_cuda.LAUNCHES_BY_KERNEL["far"],
+        far_win_launches=fused_cuda.LAUNCHES_BY_KERNEL["far_win"],
         windows=sum(w["start"] < w["end"] for w in windows),
         windows_visited=len(windows),
         far_win_rows=engine_fused.FAR_WIN_ROWS,
@@ -205,6 +206,10 @@ def problems(scene: Scene, runs: List[dict], kernel: bool) -> List[str]:
         if kernel and scene.far_win and not c.get("far_win_rows"):
             out.append(f"{scene.name} run {i}: _far_win_kernel searched "
                        "no row")
+        if kernel and c.get("far_win_rows") and not c.get(
+                "far_win_launches"):
+            out.append(f"{scene.name} run {i}: K4 rows "
+                       f"{c['far_win_rows']} but pt_far_win never launched")
     launches = {r["launches"] for r in runs}
     if len(launches) != 1:
         out.append(f"{scene.name}: search kernel launches differ between "

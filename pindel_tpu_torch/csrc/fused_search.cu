@@ -11,8 +11,13 @@
 //   geometric far-end round, a forward and a backward lane each, with the
 //   NewUPFarIsBetter replacement between rounds.  Output row: the words,
 //   the representative, round | replaced << 8 | uniform << 9.
-// The plain versions are _close_kernel_ref and _far_kernel_ref in
-// pindel_tpu_torch/ops/engine_fused.py; the outputs are equal bit for bit.
+// * far_win_kernel: pindel_tpu/ops/engine_fused.py:_far_win_kernel (K4): one
+//   far-end round over each read's own window [start, end) (a BreakDancer
+//   or read-pair evidence window) in place of K3's geometric span.  Output
+//   row: the words, the representative, any_emit | uniform << 1.
+// The plain versions are _close_kernel_ref, _far_kernel_ref and
+// _far_win_kernel_ref in pindel_tpu_torch/ops/engine_fused.py; the outputs
+// are equal bit for bit.
 //
 // What bounds them on this card.  The scan inside is K1's (scan.cu): int32
 // ALU work on the candidates a row needs.  Around it the torch composition
@@ -26,9 +31,10 @@
 // Design.
 // * One launch a call, one block a read.  A block is two groups of NW warps,
 //   one group per scan row: K2's two attempts of a range side by side, or
-//   K3's two lanes of a round.  NW is 1 on the main path (thousands of
-//   reads); a launch of too few reads to fill the card gives each row up to
-//   kMaxFusedWarps warps, which split its lanes into segments as K1 does.
+//   the two lanes of a K3 or K4 round (far_round, shared by both).  NW is
+//   1 on the main path (thousands of reads); a launch of too few reads to
+//   fill the card gives each row up to kMaxFusedWarps warps, which split
+//   its lanes into segments as K1 does.
 // * No tile tensor.  A lane's tile is nr consecutive 128-byte rows of the
 //   [2 * NR, 128] chromosome layout (the forward chromosome, then its
 //   reverse), the row index clamped into [0, 2 * NR - 1] as the JAX
@@ -45,8 +51,8 @@
 //   ballot, each emission word one __ballot_sync (bit i of word j is length
 //   index 32 j + i, little-endian, as _pack_words packs it), the last
 //   emission from the highest set bit, uniformity as a vote against the
-//   first emitted representative.  K3 merges its two lanes in lane-major
-//   order per length first (lane 0 wins equal levels).
+//   first emitted representative.  K3 and K4 merge their two lanes in
+//   lane-major order per length first (lane 0 wins equal levels).
 // * Only work the output never reads is skipped:
 //   - K2 scans range 1 only for a read with no emission in range 0: the
 //     torch version reads range 1 only where use1 = ~has0.
@@ -55,6 +61,9 @@
 //     replaces only an active read, so no later round is active.
 //   - Attempt 0 of a range that is scanned is always scanned whole: a read
 //     with no emission still takes its rep_key at length 1.
+//   - K4 skips nothing: every read's window is scanned on both lanes, and a
+//     read with no emission writes the merged rep_key at length 1 and
+//     uniform 1, as _emit_rules gives them.
 #include <algorithm>
 #include <atomic>
 #include <cstddef>
@@ -74,6 +83,7 @@ constexpr int kMaxRounds = 16;
 constexpr int kMaxFusedWarps = 4;     // warps per scan row, at most
 constexpr int kCloseWords = 3;        // meta words of a close payload row
 constexpr int kFarWords = 4;          // meta words of a far payload row
+constexpr int kFarWinWords = 4;       // meta words of a far_win payload row
 constexpr int kMaxDevices = 64;
 
 // shared scalars: per group any, rep, uniform; then K3's kept state
@@ -99,6 +109,11 @@ struct FarArgs {
   Common c;
   int nrounds;
   int span[kMaxRounds], w[kMaxRounds], shift[kMaxRounds];
+};
+
+struct FarWinArgs {
+  Common c;
+  int w, shift;
 };
 
 // Shared memory of a block of two groups of nw warps: the two queries,
@@ -347,6 +362,46 @@ __device__ __forceinline__ Block make_block(unsigned char *smem,
                gt >> 5, static_cast<int>(threadIdx.x & 31), ngroups};
 }
 
+// A far payload row's queries: lane 0 scans a forward tile with the
+// read's codes, lane 1 a backward tile with their complement (R(RC(cur)) =
+// C(cur)).  The caller synchronises.
+__device__ __forceinline__ void far_queries(const Block &bk,
+                                            const int8_t *prow, int lmax) {
+  int8_t *q0 = bk.query(0, lmax);
+  int8_t *q1 = bk.query(1, lmax);
+  for (int i = threadIdx.x; i < lmax; i += blockDim.x) {
+    const int f = nibble(prow, i);
+    q0[i] = static_cast<int8_t>(f);
+    q1[i] = complement(f);
+  }
+}
+
+// One both-strand far round over the window [start, end) in bucket w:
+// group 0 scans the forward tile from start, group 1 the backward tile
+// ending at end, then warp 0 runs the emission rules over the two lanes
+// merged and writes the emission words to `fresh`.  Its Emission is
+// warp 0's alone; the caller synchronises before another warp reads
+// `fresh`.
+template <int NW>
+__device__ __forceinline__ Emission far_round(const Block &bk,
+                                              const Common &c,
+                                              const int8_t *cat,
+                                              const Rules &u, int start,
+                                              int end, int w, int shift,
+                                              int thr, int32_t *fresh) {
+  const int valid = min(max(end - start, 0), w);
+  const int ss = bk.grp == 0 ? start : end - (w + c.lmax);
+  scan_group<NW>(bk, c, cat, bk.query(bk.grp, c.lmax), ss, bk.grp == 1, w,
+                 shift, valid, u.qlen, thr);
+  __syncthreads();   // both lanes' accumulators are complete
+  Emission e{0, -1, 0, 1};
+  if (threadIdx.x < 32) {
+    const MergedStats<NW> st{&bk, w, shift};
+    e = emit_rules(c, u, st, fresh, bk.lane);
+  }
+  return e;
+}
+
 template <int NW>
 __global__ void __launch_bounds__(64 * NW, kMinBlocks / (2 * NW)
                                                ? kMinBlocks / (2 * NW)
@@ -448,15 +503,7 @@ far_kernel(const int8_t *__restrict__ cat, const int8_t *__restrict__ payload,
   const Rules u{qlen, m[2] & 0xff, (m[2] >> 8) & 0xff, maxmm};
   const int thr = (m[2] >> 16) & 0x3ff;
   const int comp_size = m[3];
-  // lane 0: a forward tile with the current sequence; lane 1: a backward
-  // tile with its complement (R(RC(cur)) = C(cur))
-  int8_t *q0 = bk.query(0, lmax);
-  int8_t *q1 = bk.query(1, lmax);
-  for (int i = threadIdx.x; i < lmax; i += blockDim.x) {
-    const int f = nibble(prow, i);
-    q0[i] = static_cast<int8_t>(f);
-    q1[i] = complement(f);
-  }
+  far_queries(bk, prow, lmax);
   int32_t *kept = bk.words(2, lmax);
   for (int i = threadIdx.x; i < nw32; i += blockDim.x) kept[i] = 0;
   int *sc = bk.scalars();
@@ -475,18 +522,12 @@ far_kernel(const int8_t *__restrict__ cat, const int8_t *__restrict__ payload,
     if (close_max + sc[kStMax] >= qlen) break;
     // window geometry: search.py search_far_ends
     const int span = a.span[r];
-    const int wb = a.w[r];
     const int start = center > span + kSpacer ? center - span : kSpacer;
     const int end = max(min(center + span, comp_size - kSpacer), start);
-    const int valid = min(max(end - start, 0), wb);
-    const int ss = bk.grp == 0 ? start : end - (wb + lmax);
-    scan_group<NW>(bk, c, cat, bk.query(bk.grp, lmax), ss, bk.grp == 1, wb,
-                   a.shift[r], valid, qlen, thr);
-    __syncthreads();   // both lanes' accumulators are complete
+    int32_t *fresh = bk.words(0, lmax);
+    const Emission e = far_round<NW>(bk, c, cat, u, start, end, a.w[r],
+                                     a.shift[r], thr, fresh);
     if (threadIdx.x < 32) {
-      const MergedStats<NW> st{&bk, wb, a.shift[r]};
-      int32_t *fresh = bk.words(0, lmax);
-      const Emission e = emit_rules(c, u, st, fresh, bk.lane);
       const int new_max = e.any ? e.last + 1 : 0;
       if (new_max >= sc[kStMax]) {   // warp-uniform
         __syncwarp();
@@ -512,12 +553,51 @@ far_kernel(const int8_t *__restrict__ cat, const int8_t *__restrict__ payload,
   }
 }
 
+template <int NW>
+__global__ void __launch_bounds__(64 * NW, kMinBlocks / (2 * NW)
+                                               ? kMinBlocks / (2 * NW)
+                                               : 1)
+far_win_kernel(const int8_t *__restrict__ cat,
+               const int8_t *__restrict__ payload,
+               const int32_t *__restrict__ maxmm, int32_t *__restrict__ out,
+               const FarWinArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Common &c = a.c;
+  const Block bk = make_block(smem, c, NW);
+  const int lmax = c.lmax;
+  const int nw32 = lmax / 32;
+  const int read = blockIdx.x;
+  // payload row: lmax 4-bit codes, then start, end, qlen (a whole word)
+  // and ms | tm << 8 | thr << 16
+  const int8_t *prow =
+      payload + static_cast<size_t>(read) * (lmax / 2 + 4 * kFarWinWords);
+  const auto *m = reinterpret_cast<const int32_t *>(prow + lmax / 2);
+  const Rules u{m[2], m[3] & 0xff, (m[3] >> 8) & 0xff, maxmm};
+  const int thr = (m[3] >> 16) & 0x3ff;
+  far_queries(bk, prow, lmax);
+  __syncthreads();   // the queries are complete
+  int32_t *fresh = bk.words(0, lmax);
+  const Emission e = far_round<NW>(bk, c, cat, u, m[0], m[1], a.w, a.shift,
+                                   thr, fresh);
+  if (threadIdx.x < 32) {
+    int32_t *orow = out + static_cast<size_t>(read) * (nw32 + 2);
+    __syncwarp();   // lane 0 wrote the words
+    for (int i = bk.lane; i < nw32; i += 32) orow[i] = fresh[i];
+    if (bk.lane == 0) {
+      orow[nw32] = e.rep;
+      orow[nw32 + 1] = e.any | (e.uni << 1);
+    }
+  }
+}
+
 // The instantiations, by log2 of the warps per scan row.
 decltype(&close_kernel<1>) const kClose[] = {close_kernel<1>,
                                              close_kernel<2>,
                                              close_kernel<4>};
 decltype(&far_kernel<1>) const kFar[] = {far_kernel<1>, far_kernel<2>,
                                          far_kernel<4>};
+decltype(&far_win_kernel<1>) const kFarWin[] = {
+    far_win_kernel<1>, far_win_kernel<2>, far_win_kernel<4>};
 static_assert(sizeof(kClose) / sizeof(kClose[0]) == 3 &&
                   kMaxFusedWarps == 4,
               "one instantiation per power of two up to kMaxFusedWarps");
@@ -545,6 +625,12 @@ cudaError_t device_setup(int *sms) {
     }
   }
   for (auto kernel : kFar) {
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+    }
+  }
+  for (auto kernel : kFarWin) {
     if (err == cudaSuccess) {
       err = cudaFuncSetAttribute(
           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
@@ -632,6 +718,29 @@ extern "C" int pt_far(const void *cat, int nrows2, const void *payload,
   const int nw = 1 << log_nw;
   const size_t smem = FusedLayout(lmax, (lsteps + 3) / 4, nw, a.c.seg).total;
   kFar[log_nw]<<<reads, 64 * nw, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t *>(cat), static_cast<const int8_t *>(payload),
+      static_cast<const int32_t *>(maxmm), static_cast<int32_t *>(out), a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int pt_far_win(const void *cat, int nrows2, const void *payload,
+                          const void *maxmm, void *out, int reads, int w,
+                          int shift, int lmax, int lsteps, int mpm,
+                          int bp_start, int dead, int cap, void *stream) {
+  int sms = 0;
+  cudaError_t err = device_setup(&sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (reads == 0) return 0;
+  FarWinArgs a;
+  a.c = Common{nrows2, lmax, lsteps, mpm, bp_start, dead, 0, cap};
+  a.w = w;
+  a.shift = shift;
+  int log_nw = 0;
+  plan(sms, reads, lanes_of(w, lmax), &log_nw, &a.c.seg);
+  const int nw = 1 << log_nw;
+  const size_t smem = FusedLayout(lmax, (lsteps + 3) / 4, nw, a.c.seg).total;
+  kFarWin[log_nw]<<<reads, 64 * nw, smem,
+                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t *>(cat), static_cast<const int8_t *>(payload),
       static_cast<const int32_t *>(maxmm), static_cast<int32_t *>(out), a);
   return static_cast<int>(cudaGetLastError());

@@ -10,18 +10,19 @@ JAX engine:
   NewUPFarIsBetter replacement rule (farend_searcher.cpp:30-44) between
   rounds.
 
-Both dispatch on the payload's device: a CUDA tensor takes the hand-written
-fused kernels (``fused_cuda.pt_close``/``pt_far``, ``csrc/fused_search.cu``:
-one launch a call, tiles read straight from the chromosome, the scan and the
-emission rules in the block), a CPU tensor the plain versions
-``_close_kernel_ref``/``_far_kernel_ref``.  ``_far_win_kernel`` runs one
-both-strand far-end round over an explicit window per read: the
-BreakDancer/RP evidence windows of BAM input.  It and the plain versions go
-through ``_scan_lanes`` -> ``scan_rows``, which launches the hand-written
-CUDA scan (``csrc/scan.cu``) on CUDA tensors and runs its plain PyTorch
-version on CPU tensors.  The device half below keeps the JAX functions'
-names and output contracts, so the host half (copied from the JAX module,
-which imports jax at module top) decodes the same packed words.
+``_far_win_kernel`` runs one both-strand far-end round over an explicit
+window per read: the BreakDancer/RP evidence windows of BAM input.  The
+three dispatch on the payload's device: a CUDA tensor takes the hand-written
+fused kernels (``fused_cuda.pt_close``/``pt_far``/``pt_far_win``,
+``csrc/fused_search.cu``: one launch a call, tiles read straight from the
+chromosome, the scan and the emission rules in the block), a CPU tensor the
+plain versions ``_close_kernel_ref``/``_far_kernel_ref``/
+``_far_win_kernel_ref``.  The plain versions go through ``_scan_lanes`` ->
+``scan_rows``, which launches the hand-written CUDA scan (``csrc/scan.cu``)
+on CUDA tensors and runs its plain PyTorch version on CPU tensors.  The
+device half below keeps the JAX functions' names and output contracts, so
+the host half (copied from the JAX module, which imports jax at module top)
+decodes the same packed words.
 ``TorchFusedBackend`` reaches the three launches through its dispatch
 points ``_close_call``/``_far_call``/``_far_win_call``, which take the host
 payload of a chunk's real rows (rounded up to ``dp``, the devices the mesh
@@ -439,9 +440,22 @@ def _far_kernel_ref(chrom, payload, maxmm,
 FW_WORDS = 4
 
 
-def _far_win_kernel(chrom, payload, maxmm,
-                    *, w: int, lmax: int, mpm: int, bp_start: int,
-                    lsteps: int = 0):
+def _far_win_kernel(chrom, payload, maxmm, **static):
+    """K4 on the payload's device: ``fused_cuda.pt_far_win`` on a card, the
+    plain ``_far_win_kernel_ref`` on the CPU; any other device raises."""
+    kind = payload.device.type
+    if kind == "cpu":
+        return _far_win_kernel_ref(chrom, payload, maxmm, **static)
+    if kind == "cuda":
+        from pindel_tpu_torch.ops import fused_cuda
+        return fused_cuda.pt_far_win(chrom, payload, maxmm, **static)
+    raise ValueError(f"_far_win_kernel: no kernel for device "
+                     f"{payload.device}")
+
+
+def _far_win_kernel_ref(chrom, payload, maxmm,
+                        *, w: int, lmax: int, mpm: int, bp_start: int,
+                        lsteps: int = 0):
     """One both-strand far-end round over explicit per-read windows (see
     the JAX ``_far_win_kernel``): the BreakDancer/RP evidence-window path
     for the single-window case, with the lanes and emission rules of one

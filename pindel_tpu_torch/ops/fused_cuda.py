@@ -1,8 +1,9 @@
-"""Build and bind the fused close/far kernels (``csrc/fused_search.cu``).
+"""Build and bind the fused search kernels (``csrc/fused_search.cu``).
 
-``pt_close`` computes ``engine_fused._close_kernel_ref`` (K2) and ``pt_far``
-``engine_fused._far_kernel_ref`` (K3), bit for bit, each in one launch on
-CUDA tensors: the tiles are read straight from the chromosome layout, the
+``pt_close`` computes ``engine_fused._close_kernel_ref`` (K2), ``pt_far``
+``engine_fused._far_kernel_ref`` (K3) and ``pt_far_win``
+``engine_fused._far_win_kernel_ref`` (K4), bit for bit, each in one launch
+on CUDA tensors: the tiles are read straight from the chromosome layout, the
 scan (K1's walk, ``csrc/scan_walk.cuh``) and the emission rules run in the
 block, and only the packed output row of each read reaches device memory.
 The library is compiled with ``nvcc`` for ``sm_90a`` under
@@ -10,7 +11,7 @@ The library is compiled with ``nvcc`` for ``sm_90a`` under
 ``scan_cuda.compile_library`` builds the scan, and loaded with ctypes.  Each
 wrapper checks its inputs, allocates its output, launches on PyTorch's
 current stream and counts its launches in ``LAUNCHES`` (per card index in
-``LAUNCHES_BY_DEVICE``, per kernel, ``close`` or ``far``, in
+``LAUNCHES_BY_DEVICE``, per kernel, ``close``, ``far`` or ``far_win``, in
 ``LAUNCHES_BY_KERNEL``); a failed build or launch raises.
 """
 from __future__ import annotations
@@ -23,6 +24,7 @@ import threading
 import torch
 
 from pindel_tpu_torch.config import MAX_READ_LENGTH
+from pindel_tpu_torch.genome import SPACER
 from pindel_tpu_torch.ops import scan_cuda
 from pindel_tpu_torch.ops.scan import dead_level, key_shift
 
@@ -31,10 +33,11 @@ LIBRARY = os.path.join(scan_cuda.BUILD_DIR, "libpt_fused.so")
 MAX_ROUNDS = 16          # far rounds a launch takes (kMaxRounds)
 CLOSE_WORDS = 3          # meta words of a close payload row (CM_WORDS)
 FAR_WORDS = 4            # meta words of a far payload row (FM_WORDS)
+FAR_WIN_WORDS = 4        # meta words of a far_win payload row (FW_WORDS)
 
 LAUNCHES = 0        # kernel launches since import (or the last reset)
 LAUNCHES_BY_DEVICE = collections.Counter()   # the same, per card index
-LAUNCHES_BY_KERNEL = collections.Counter()   # per kernel: close, far
+LAUNCHES_BY_KERNEL = collections.Counter()   # close, far, far_win
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -56,6 +59,9 @@ def load(path: str) -> ctypes.CDLL:
     lib.pt_far.argtypes = ([_PTR, _INT, _PTR, _PTR, _PTR, _INT, _INT]
                            + [_PTR] * 3 + [_INT] * 6 + [_PTR])
     lib.pt_far.restype = _INT
+    lib.pt_far_win.argtypes = ([_PTR, _INT, _PTR, _PTR, _PTR] + [_INT] * 9
+                               + [_PTR])
+    lib.pt_far_win.restype = _INT
     return lib
 
 
@@ -144,6 +150,26 @@ def far_args(chromcat, payload, maxmm, device, *, spans, ws, lmax: int,
     return out, args
 
 
+def far_win_args(chromcat, payload, maxmm, device, *, w: int, lmax: int,
+                 mpm: int, bp_start: int, lsteps: int = 0):
+    """The output tensor and the C arguments of ``pt_far_win`` (all but the
+    stream), after the checks; a tile of ``w + lmax`` must fit in the
+    spacer, as the backend sends it."""
+    reads, lsteps = _common(chromcat, payload, maxmm,
+                            lmax // 2 + 4 * FAR_WIN_WORDS, lmax, lsteps,
+                            device)
+    if w <= 0 or w + lmax > SPACER:
+        raise ValueError(f"window bucket {w} with lmax {lmax} outgrows the "
+                         f"spacer ({SPACER})")
+    out = torch.empty((reads, lmax // 32 + 2), dtype=torch.int32,
+                      device=device)
+    args = (chromcat.data_ptr(), chromcat.shape[0], payload.data_ptr(),
+            maxmm.data_ptr(), out.data_ptr(), reads, w, _shift(w, lmax),
+            lmax, lsteps, mpm, bp_start, dead_level(lmax),
+            MAX_READ_LENGTH - 1)
+    return out, args
+
+
 def _card(payload) -> torch.device:
     device = payload.device
     if device.type != "cuda":
@@ -187,6 +213,16 @@ def pt_far(chromcat, payload, maxmm, *, spans, ws, lmax: int, mpm: int,
                          ws=ws, lmax=lmax, mpm=mpm, bp_start=bp_start,
                          lsteps=lsteps)
     return _launch("pt_far", device, out, args)
+
+
+def pt_far_win(chromcat, payload, maxmm, *, w: int, lmax: int, mpm: int,
+               bp_start: int, lsteps: int = 0):
+    """K4 on the card: the contract of ``_far_win_kernel_ref``."""
+    device = _card(payload)
+    out, args = far_win_args(chromcat, payload, maxmm, device, w=w,
+                             lmax=lmax, mpm=mpm, bp_start=bp_start,
+                             lsteps=lsteps)
+    return _launch("pt_far_win", device, out, args)
 
 
 def search_launches() -> int:

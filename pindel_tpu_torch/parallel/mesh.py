@@ -94,12 +94,13 @@ def _search(chroms, slice_start, reverse, qq, valid_w, qlen, max_snp,
                 tsec_minus=np.asarray(tsec_minus, np.int32),
                 qlen=np.asarray(qlen, np.int32),
                 max_allowed=np.asarray(max_allowed, np.float32))
-    levels = dict(t_levels=int(host["tsec_minus"].max(initial=0)),
-                  s_levels=int(host["max_snp"].max(initial=0)))
-    if max(levels.values()) >= ss.DEAD:
-        raise ValueError(f"budgets {levels} reach the DEAD level")
+    # budgets at and past the DEAD level as the JAX function takes them: a
+    # live candidate at 127 counts with the dead ones
+    t_levels, s_levels = ss.levels(int(host["max_snp"].max(initial=0)),
+                                   int(host["tsec_minus"].max(initial=0)),
+                                   lmax)
     kw = dict(w_total=w_total, w_local=w_local, lmax=lmax, nl=nl, mpm=mpm,
-              **levels)
+              t_levels=t_levels, s_levels=s_levels)
     with torch.inference_mode():
         # launch every shard before any download
         inputs, parts = {}, {}
@@ -125,6 +126,11 @@ def _search(chroms, slice_start, reverse, qq, valid_w, qlen, max_snp,
                 [parts[i, k][0].to(lead) for k in range(grid.wp)],
                 [parts[i, k][1].to(lead) for k in range(grid.wp)],
                 x["max_snp"], x["tsec_minus"])
+            if s_levels >= ss.DEAD:
+                merged = ss.dead_rep_strict(
+                    merged, chroms[lead], x["slice_start"], x["reverse"],
+                    x["qq"], w_total=w_total, w_local=w_local, lmax=lmax,
+                    mpm=mpm)
             full_mm = ss.recount(chroms[lead], x["slice_start"],
                                  x["reverse"], x["qq"], x["qlen"],
                                  merged[3], w_total=w_total,

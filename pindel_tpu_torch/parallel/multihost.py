@@ -193,14 +193,14 @@ def rank_devices(device, backend: str, rank: int,
 
 
 def build_libraries(devices) -> None:
-    """Build (or load the built) search kernels, when a rank runs on a card,
-    and the native libraries the window loop loads, so that workers only
-    load them."""
+    """Build (or load the built) fused search kernels, when a rank runs on a
+    card, and the native libraries the window loop loads, so that workers
+    only load them.  The standalone scan (``scan_cuda``) is not built: no
+    CLI path launches it, K1's walk runs inside the fused kernels."""
     from pindel_tpu_torch import bam, bddata, textindex
     from pindel_tpu_torch.events.detect import _native_detect
     from pindel_tpu_torch.ops import engine_fused
     if any(torch.device(d).type == "cuda" for d in devices):
-        scan_cuda._lib()
         fused_cuda._lib()
     textindex._lib()
     bam._lib()
@@ -211,7 +211,8 @@ def build_libraries(devices) -> None:
 
 
 def _kernel_launches() -> collections.Counter:
-    """Launches per search kernel (``scan``, ``close``, ``far``)."""
+    """Launches per search kernel (``scan``, ``close``, ``far``,
+    ``far_win``)."""
     return collections.Counter(scan=scan_cuda.LAUNCHES,
                                **fused_cuda.LAUNCHES_BY_KERNEL)
 

@@ -13,17 +13,17 @@ not time, drawn after them), but the payloads are packed as the
 backend packs them (the close payload holds each read and its copy
 reversed within its length; both kernels take the chromosome in the
 [2 * rows, 128] layout of ``engine_fused._chrom_cat``).  Each call is timed
-with CUDA events, the least of 3 after a warm-up.  On a card K2 and K3 are
-the fused kernels (``fused_cuda.pt_close``/``pt_far``); beside each the
-torch composition they replaced (``_close_kernel_ref``/``_far_kernel_ref``
-over the scan kernel, K1) is timed as ``parent_ms``, with its scan calls'
-time (``k1_ms``).  K4 is the composition itself.  Each call's output is
-held, bit for bit, against the plain version (the ``_ref`` body, or K4,
-over the plain scan) (``correct``).  K2's and K3's bound is
-``measure.fused_bound`` (K1's operations over the rows the fused kernel
-scans, or the bytes it must move), printed beside the earlier count
-(``measure.composition_bound``: each scan call's ``scan_bound`` over all
-its rows plus the bytes the torch code moves), which stays K4's bound.
+with CUDA events, the least of 3 after a warm-up.  On a card K2, K3 and K4
+are the fused kernels (``fused_cuda.pt_close``/``pt_far``/``pt_far_win``);
+beside each the torch composition it replaced (``_close_kernel_ref``/
+``_far_kernel_ref``/``_far_win_kernel_ref`` over the scan kernel, K1) is
+timed as ``parent_ms``, with its scan calls' time (``k1_ms``).  Each call's
+output is held, bit for bit, against the plain version (the ``_ref`` body
+over the plain scan) (``correct``).  The bound is ``measure.fused_bound``
+(K1's operations over the rows the fused kernel scans, or the bytes it must
+move), printed beside the earlier count (``measure.composition_bound``:
+each scan call's ``scan_bound`` over all its rows plus the bytes the torch
+code moves).
 ``--per-round`` adds K3 over each of its rounds alone (``far_round_SPAN``),
 which shows the cost of a round by its window.
 
@@ -104,7 +104,8 @@ KERNELS = {"close_both_ranges": "_close_kernel",
            "close_range0": "_close_kernel", "far_3_rounds": "_far_kernel",
            "far_window": "_far_win_kernel"}
 REFS = {"_close_kernel": engine_fused._close_kernel_ref,
-        "_far_kernel": engine_fused._far_kernel_ref}
+        "_far_kernel": engine_fused._far_kernel_ref,
+        "_far_win_kernel": engine_fused._far_win_kernel_ref}
 
 
 def calls(chrom, maxmm, payload, fpayload, wpayload, dev):
@@ -137,23 +138,6 @@ def call_args(chrom, maxmm, payload, fpayload, wpayload, dev,
                                  dict(FAR, spans=(span,), ws=(w,)))
            for span, w in zip(FAR["spans"], FAR["ws"]) if per_round},
     }
-
-
-def scan_calls(fn):
-    """The scan calls ``fn()`` makes, as (args, kw)."""
-    made = []
-    real = engine_fused.scan_rows
-
-    def recording(*a, **kw):
-        made.append((a, kw))
-        return real(*a, **kw)
-
-    engine_fused.scan_rows = recording
-    try:
-        fn()
-    finally:
-        engine_fused.scan_rows = real
-    return made
 
 
 def with_plain_scan(fn):
@@ -209,23 +193,16 @@ def main(argv=None) -> int:
             ms = measure.min_ms(fn, dev)
             row = dict(rows=args.b, ms=ms, rows_per_s=args.b / ms * 1e3,
                        launches=launches, first_use_s=first_s)
-            if kname in REFS:
-                ref = lambda: REFS[kname](cat, pay, mm, **static)  # noqa: E731
-                same = torch.equal(out, with_plain_scan(ref))
-                b = measure.fused_bound(kname, cat, pay, mm, static)
-                _out, scans, _rules = measure.composition_scans(
-                    kname, cat, pay, mm, static)
-                row.update(parent_ms=measure.min_ms(ref, dev),
-                           bound_ms=b["bound_ms"], bound_by=b["bound_by"],
-                           earlier_bound_ms=b["composition_bound_ms"],
-                           rows_scanned=b["rows_scanned"],
-                           rows_all=b["rows_all"])
-            else:
-                same = torch.equal(out, with_plain_scan(fn))
-                scans = scan_calls(fn)
-                k = measure.composition_bound(pay, out, scans)
-                row.update(parent_ms=None, bound_ms=k, bound_by="operations",
-                           earlier_bound_ms=k)
+            ref = lambda: REFS[kname](cat, pay, mm, **static)  # noqa: E731
+            same = torch.equal(out, with_plain_scan(ref))
+            b = measure.fused_bound(kname, cat, pay, mm, static)
+            _out, scans, _rules = measure.composition_scans(
+                kname, cat, pay, mm, static)
+            row.update(parent_ms=measure.min_ms(ref, dev),
+                       bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+                       earlier_bound_ms=b["composition_bound_ms"],
+                       rows_scanned=b["rows_scanned"],
+                       rows_all=b["rows_all"])
             k1_ms = sum(measure.min_ms(
                 lambda a=a, kw=kw: engine_fused.scan_rows(*a, **kw), dev)
                 for a, kw in scans)
@@ -234,11 +211,10 @@ def main(argv=None) -> int:
                        bound_share=row["bound_ms"] / ms, equal_to_plain=same)
             result[name] = row
             log(f"{name} b={args.b}: {ms:.4f} ms ({args.b / ms * 1e3:.0f} "
-                f"rows/s), "
-                + (f"the composition it replaced {row['parent_ms']:.4f} ms, "
-                   if row["parent_ms"] is not None else "")
-                + f"{len(scans)} scan calls {k1_ms:.4f} ms, launches "
-                f"{launches}, bound {row['bound_ms']:.4f} ms "
+                f"rows/s), the composition it replaced "
+                f"{row['parent_ms']:.4f} ms, {len(scans)} scan calls "
+                f"{k1_ms:.4f} ms, launches {launches}, bound "
+                f"{row['bound_ms']:.4f} ms "
                 f"({row['bound_share']:.1%}; earlier count "
                 f"{row['earlier_bound_ms']:.4f} ms), equal to the plain "
                 f"version: {same}  [{card}]")

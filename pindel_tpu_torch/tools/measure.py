@@ -134,7 +134,8 @@ def composition_scans(name, chromcat, payload, maxmm, static):
     group 0."""
     from pindel_tpu_torch.ops import engine_fused
     ref = {"_close_kernel": engine_fused._close_kernel_ref,
-           "_far_kernel": engine_fused._far_kernel_ref}[name]
+           "_far_kernel": engine_fused._far_kernel_ref,
+           "_far_win_kernel": engine_fused._far_win_kernel_ref}[name]
     scans, rules = [], []
     real_scan, real_rules = engine_fused.scan_rows, engine_fused._emit_rules
 
@@ -160,11 +161,14 @@ def fused_rows(name, payload, static, out, rules):
     """Per scan call of the composition, the rows (two a read) that the
     fused kernel scans: for K2 range 0 whole and range 1 only for reads
     with no range-0 emission; for K3 each round only for the reads still
-    active (close_max + st_max < qlen, as ``_far_kernel_ref`` replaces)."""
+    active (close_max + st_max < qlen, as ``_far_kernel_ref`` replaces); for
+    K4 every row of its one call."""
     from pindel_tpu_torch.ops import engine_fused as ef
     lmax = static["lmax"]
     flags = out[:, lmax // 32 + 1]
-    if name == "_close_kernel":
+    if name == "_far_win_kernel":
+        reads = [torch.ones_like(flags, dtype=torch.bool)]
+    elif name == "_close_kernel":
         reads = [torch.ones_like(flags, dtype=torch.bool)]
         if static["with_r1"]:
             reads.append((flags & 255) >= 2)
@@ -201,9 +205,10 @@ def composition_bound(payload, out, scans):
 
 def fused_bound(name, chromcat, payload, maxmm, static):
     """The least time of a fused call (``pt_close`` for ``_close_kernel``,
-    ``pt_far`` for ``_far_kernel``) as the kernel works: K1's operations
-    (``scan_ops``) over the rows it scans (``fused_rows``: real rows only,
-    range 1 only without a range-0 hit, rounds only while active) at
+    ``pt_far`` for ``_far_kernel``, ``pt_far_win`` for ``_far_win_kernel``)
+    as the kernel works: K1's operations (``scan_ops``) over the rows it
+    scans (``fused_rows``: real rows only, range 1 only without a range-0
+    hit, rounds only while active, every row of K4) at
     PEAK_INT32_OPS, or the bytes it must move at PEAK_BYTES (the payload,
     one read of each scanned tile's chromosome span, the output), whichever
     is longer.  Returns a dict: ``bound_ms``, ``bound_by``, the rows

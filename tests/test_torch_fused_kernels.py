@@ -1,12 +1,14 @@
-"""K2 (``_close_kernel``) and K3 (``_far_kernel``) of the port against the JAX
-package's, on the CPU, on the inputs built for the fused kernels' edge cases
-(``pindel_tpu_torch/testing/fused_cases.py``); every comparison is exact
-(tolerance 0: the search is integer-only).
+"""K2 (``_close_kernel``), K3 (``_far_kernel``) and K4 (``_far_win_kernel``)
+of the port against the JAX package's, on the CPU, on the inputs built for
+the fused kernels' edge cases (``pindel_tpu_torch/testing/fused_cases.py``,
+lmax 128 to 512); every comparison is exact (tolerance 0: the search is
+integer-only).
 
 On the CPU the port runs the plain versions (``_close_kernel_ref``,
-``_far_kernel_ref``); the CUDA kernels (``csrc/fused_search.cu``) compute the
-same function on the card, where chip_smoke.py holds them against these
-plain versions on the same cases.  Here the tests also check:
+``_far_kernel_ref``, ``_far_win_kernel_ref``); the CUDA kernels
+(``csrc/fused_search.cu``) compute the same function on the card, where
+chip_smoke.py holds them against these plain versions on the same cases.
+Here the tests also check:
 
 * that a launch's real rows do not depend on the padding rows after them
   (the backend now sends a chunk's real rows, rounded up to ``dp``, where it
@@ -15,7 +17,8 @@ plain versions on the same cases.  Here the tests also check:
   of a read with a range-0 emission, and the windows of a far round after a
   read's first inactive round, scrambled, leave the output unchanged;
 * the dispatch: a CPU tensor never reaches ``fused_cuda``, which refuses
-  CPU tensors.
+  CPU tensors, and the wrappers' checks;
+* the rows ``measure.fused_rows`` counts for each kernel's bound.
 """
 import numpy as np
 import pytest
@@ -27,7 +30,9 @@ from pindel_tpu.config import Settings
 from pindel_tpu.ops import engine_fused as jx
 from pindel_tpu_torch.ops import engine_fused as tx
 from pindel_tpu_torch.ops import fused_cuda
-from pindel_tpu_torch.testing.fused_cases import CASES, fused_case
+from pindel_tpu_torch.testing.fused_cases import (CASES, FAR_WIN_CASES,
+                                                  fused_case)
+from pindel_tpu_torch.tools import measure
 from test_search_semantics import make_genome, sample_reads
 from test_torch_engine import (assert_same, far_win_payload, run_port_search,
                                to_port, torch_backend)
@@ -75,6 +80,13 @@ def test_fused_case_matches_jax(case):
     if case.startswith("far_x") and case != "far_x0":
         rounds = (flags & 255)[(flags >> 8) & 1 == 1]
         assert len(set(rounds.tolist())) > 1    # replaced in several rounds
+    if case in ("close_long384", "close_long512", "far_long384",
+                "far_long512") or case in FAR_WIN_CASES:
+        # some reads emit, and (K4) some do not
+        words = got[:, :static["lmax"] // 32].numpy()
+        assert (words != 0).any()
+        if case in FAR_WIN_CASES:
+            assert set(np.unique(flags & 1)) == {0, 1}
 
 
 # ------------------------------------------------------- real rows only
@@ -257,15 +269,51 @@ def test_cpu_tensors_never_reach_fused_cuda(monkeypatch):
         assert out.shape[0] == 4
 
 
-@pytest.mark.parametrize("case", ["close", "far_x1"])
+WRAPPERS = {"_close_kernel": "pt_close", "_far_kernel": "pt_far",
+            "_far_win_kernel": "pt_far_win"}
+ARGS = {"_close_kernel": fused_cuda.close_args,
+        "_far_kernel": fused_cuda.far_args,
+        "_far_win_kernel": fused_cuda.far_win_args}
+
+
+def test_far_win_cpu_tensor_takes_the_plain_version(monkeypatch):
+    """On CPU tensors ``_far_win_kernel`` runs ``_far_win_kernel_ref`` and
+    never reaches ``fused_cuda``."""
+    def refuse(*a, **kw):
+        raise AssertionError("a CPU tensor reached fused_cuda")
+
+    taken = []
+    real = tx._far_win_kernel_ref
+
+    def ref(*a, **kw):
+        taken.append(kw["w"])
+        return real(*a, **kw)
+
+    monkeypatch.setattr(fused_cuda, "pt_far_win", refuse)
+    monkeypatch.setattr(tx, "_far_win_kernel_ref", ref)
+    name, chrom, maxmm, payload, static = fused_case("far_win")
+    out = port_call(name, chrom, maxmm, payload[:4], static)
+    assert out.shape == (4, static["lmax"] // 32 + 2)
+    assert taken == [static["w"]]
+
+
+@pytest.mark.parametrize("case", ["close", "far_x1", "far_win"])
 def test_fused_cuda_refuses_cpu_tensors(case):
     name, chrom, maxmm, payload, static = fused_case(case)
-    fn = fused_cuda.pt_close if name in ("_close_kernel",) else \
-        fused_cuda.pt_far
+    fn = getattr(fused_cuda, WRAPPERS[name])
     with pytest.raises(ValueError, match="CUDA tensors"):
         fn(tx._chrom_cat(torch.from_numpy(chrom)),
            torch.from_numpy(payload.copy()), torch.from_numpy(maxmm.copy()),
            **static)
+
+
+def test_far_win_other_devices_raise():
+    name, chrom, maxmm, payload, static = fused_case("far_win")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        tx._far_win_kernel(tx._chrom_cat(torch.from_numpy(chrom)),
+                           torch.empty(payload.shape, dtype=torch.int8,
+                                       device="meta"),
+                           torch.from_numpy(maxmm.copy()), **static)
 
 
 def test_other_devices_raise():
@@ -312,15 +360,61 @@ def test_fused_args_checks(bad):
         args(cat, p, m, cpu, **static)
 
 
+@pytest.mark.parametrize("bad", ["lmax", "shape", "spacer", "dtype"])
+def test_far_win_args_checks(bad):
+    """``far_win_args`` refuses a bad lmax, a payload row of a close call's
+    width, a tile of ``w + lmax`` past the spacer and a payload that is not
+    int8."""
+    cpu = torch.device("cpu")
+    name, chrom, maxmm, payload, static = fused_case("far_win")
+    cat = tx._chrom_cat(torch.from_numpy(chrom))
+    p = torch.from_numpy(payload.copy())
+    m = torch.from_numpy(maxmm.copy())
+    static = dict(static)
+    if bad == "lmax":
+        static["lmax"] = 100
+    elif bad == "shape":
+        p = torch.zeros((p.shape[0], static["lmax"] + 12), dtype=torch.int8)
+    elif bad == "spacer":
+        static["w"] = 100_000 - static["lmax"] + 1
+    else:
+        p = p.to(torch.int32)
+    with pytest.raises((ValueError, TypeError)):
+        fused_cuda.far_win_args(cat, p, m, cpu, **static)
+    # the widest bucket that fits takes a key that fits in int32
+    static = dict(static, w=98304, lmax=512, lsteps=512)
+    p = torch.zeros((2, 512 // 2 + 16), dtype=torch.int8)
+    out, args = fused_cuda.far_win_args(cat, p, m, cpu, **static)
+    assert out.shape == (2, 18) and args[7] == 19
+
+
 def test_fused_args_accept_the_cases():
     """Every edge case passes the wrappers' checks (on the CPU as the
     device), with one output row per read."""
     cpu = torch.device("cpu")
     for case in CASES:
         name, chrom, maxmm, payload, static = fused_case(case)
-        fn = fused_cuda.close_args if name == "_close_kernel" else \
-            fused_cuda.far_args
-        out, args = fn(tx._chrom_cat(torch.from_numpy(chrom)),
-                       torch.from_numpy(payload.copy()),
-                       torch.from_numpy(maxmm.copy()), cpu, **static)
+        out, args = ARGS[name](tx._chrom_cat(torch.from_numpy(chrom)),
+                               torch.from_numpy(payload.copy()),
+                               torch.from_numpy(maxmm.copy()), cpu, **static)
         assert out.shape == (payload.shape[0], static["lmax"] // 32 + 2)
+
+
+# ------------------------------------------------------------- the bound
+@pytest.mark.parametrize("case", ["far_win", "far_win_edges"])
+def test_fused_rows_counts_every_far_win_row_twice(case):
+    """K4 scans both lanes of every read: ``measure.fused_rows`` gives its
+    one scan call every row, and ``fused_bound`` scans all of them."""
+    name, chrom, maxmm, payload, static = fused_case(case)
+    cat = tx._chrom_cat(torch.from_numpy(chrom))
+    p = torch.from_numpy(payload.copy())
+    m = torch.from_numpy(maxmm.copy())
+    out, scans, rules = measure.composition_scans(name, cat, p, m, static)
+    assert_same(out, jax_call(name, chrom, maxmm, payload, static))
+    rows = measure.fused_rows(name, p, static, out, rules)
+    assert len(rows) == len(scans) == 1
+    assert rows[0].shape == (2 * p.shape[0],) and bool(rows[0].all())
+    assert scans[0][0][0].shape[0] == 2 * p.shape[0]
+    b = measure.fused_bound(name, cat, p, m, static)
+    assert b["rows_scanned"] == b["rows_all"] == 2 * p.shape[0]
+    assert b["bound_ms"] > 0 and b["composition_bound_ms"] > 0

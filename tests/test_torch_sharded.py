@@ -5,8 +5,10 @@ ops/sharded_search.py) against the JAX package's, on the CPU.
 shard kernel on every shard; it must equal JAX ``build_sharded_search`` on
 the eight virtual CPU devices bit for bit, on all five outputs, at the
 grids (dp, wp) = (2, 4), (1, 8) and (4, 2), on ``__graft_entry__``'s
-example arrays and on each edge case of
-``pindel_tpu_torch/testing/shard_cases.py``.  ``TorchShardedBackend`` must
+example arrays, on each edge case of
+``pindel_tpu_torch/testing/shard_cases.py`` and on
+``testing/lane_cases.py:dead_level_case``'s budgets at and past the DEAD
+level.  ``TorchShardedBackend`` must
 match the NumPy oracle on tests/test_mesh_sharded.py's scene.  Tolerance
 is 0 everywhere: the search is integer-only, and the one float compare
 gets the same host-made float32 threshold.
@@ -28,6 +30,7 @@ from pindel_tpu_torch.ops import sharded_search as ss
 from pindel_tpu_torch.ops.sharded_search_cuda import shard_partials_cuda
 from pindel_tpu_torch.parallel import mesh as tmesh
 from pindel_tpu_torch.search import Searcher as PortSearcher
+from pindel_tpu_torch.testing.lane_cases import dead_level_case
 from pindel_tpu_torch.testing.shard_cases import CASES, shard_case
 from test_search_semantics import make_genome, sample_reads, ups_key
 from test_torch_engine import to_port
@@ -214,3 +217,22 @@ def test_wrapper_refuses_cpu_tensors():
     assert all(torch.equal(x, y) for x, y in zip(a, b))
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         shard_partials_cuda(*args, **kw)
+
+
+@pytest.mark.parametrize("dp,wp", GRIDS + [(1, 1)])
+@pytest.mark.parametrize("ms,tm", [(130, 131), (3, 131), (131, 131)])
+def test_dead_level_budgets_match_jax(ms, tm, dp, wp):
+    """Budgets at and past the DEAD level (127): the JAX function counts a
+    live candidate at 127 with the dead ones and keeps levels past 127 up
+    to max_snp; the port takes such budgets (``ss.levels``, the DEAD
+    representative's strict bit recounted) and gives the same five outputs
+    at every grid."""
+    arrays, st = dead_level_case(ms, tm)
+    static = dict(w_total=st["w"], lmax=st["lmax"], nl=st["nl"],
+                  mpm=st["mpm"], bp_start=st["bp_start"])
+    got, want = both(arrays, static, dp, wp)
+    assert_equal(got, want)
+    min_mm = want[1]
+    # the rows reach the DEAD level, and with ms past it levels above it
+    assert (min_mm == ss.DEAD).any()
+    assert (min_mm > ss.DEAD).any() == (ms > ss.DEAD)
