@@ -5,7 +5,8 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py [--profile-dir DIR] [--parent-kernel PATH]
 
-Phases, in order; any failure exits non-zero:
+Phases, in order (each logs the command time at which it starts); any
+failure exits non-zero:
 
 0. the port's imports load no module of the JAX package (``pindel_tpu``)
    and no jax (checked again at the end);
@@ -50,9 +51,14 @@ Phases, in order; any failure exits non-zero:
    launched, the explicit-window kernel's rows above 0 where evidence
    windows guide the search and ``pt_far_win`` launched wherever they are,
    and the native BAM and RP libraries loaded from
-   pindel_tpu_torch/build/native/.  On every CLI path (phases 4-8, 12) the
-   standalone scan kernel must launch no time: K1's walk runs inside the
-   fused kernels;
+   pindel_tpu_torch/build/native/; then the reference suite's scenes
+   (testing/scenes.py:SUITE_SCENES: an interchromosomal BreakDancer call
+   with and without -I, -c with and without coordinates, -j, -J, -j with
+   -J, the TD depth filter at -x 4 with and without -N, the -r/-t flag
+   tokens) through each backend SUITE_BACKENDS names (fused, and mesh, jax
+   and numpy where it says so), every report equal to the golden files.
+   On every CLI path (phases 4-8, 12, 13) the standalone scan kernel must
+   launch no time: K1's walk runs inside the fused kernels;
 5. scene 1 of bench.py at full size (50,000 reads over a 6 Mb chromosome,
    -T 4) and 6. scene 2 (BAM input with a BreakDancer calls file: 12,000
    read pairs over a 2 Mb chromosome, -T 4), each: a first run that
@@ -103,12 +109,12 @@ Phases, in order; any failure exits non-zero:
       every rank that owned a window launched the kernel on its own card;
    b. scene 2 at ``--hosts 2`` (one window: rank 1 owns none): reports
       byte-identical to phase 6 and to the digests;
-   c. timed runs in turns, median of three: scene 1 at ``-w 1`` (six
-      windows) at ``--hosts`` 1, 2 and 3 (files), scene 2 at ``-w 0.5``
-      (four windows) at ``--hosts`` 1 and 2 (store); the multi-process
-      reports equal the one-process ones; the wall and rate of each, and
-      each rank's devices, windows, launches, memory, wall and time from
-      its spawn to its first shipped window;
+   c. timed runs in turns, two of each (the lower median): scene 1 at
+      ``-w 1`` (six windows) at ``--hosts`` 1, 2 and 3 (files), scene 2 at
+      ``-w 0.5`` (four windows) at ``--hosts`` 1 and 2 (store); the
+      multi-process reports equal the one-process ones; the wall and rate of
+      each, and each rank's devices, windows, launches, memory, wall and
+      time from its spawn to its first shipped window;
 9. the window-parallel search (K9, parallel/mesh.py), which no CLI reaches:
    a. the shard kernel against its plain twin, bit for bit, on every case
       of testing/shard_cases.py (DEAD and 2^30 representatives, clamped
@@ -139,8 +145,9 @@ Phases, in order; any failure exits non-zero:
    legacy rows and the launches; the largest shard call of each scene is
    held against the twin and timed beside the parent's kernel;
 11. the port's measurement tools, each in a fresh interpreter:
-   ``python -m pindel_tpu_torch.bench --runs 2`` (two timed runs a scene,
-   not five: phases 5, 6 and 12 run its scenes too), ``pindel_tpu_torch.tools.
+   ``python -m pindel_tpu_torch.bench --runs 1`` (one timed run a scene,
+   not five: phases 5, 6, 12 and 13 run its scenes too),
+   ``pindel_tpu_torch.tools.
    kernel_bench --per-round``, ``profile_bench --scene 1 --runs 2`` and
    ``multihost_bench --hosts 2``: each exits 0 with ``"correct": true``,
    its rates and times positive, the device-busy share in (0, 1], the
@@ -150,7 +157,9 @@ Phases, in order; any failure exits non-zero:
    ``scene3_*`` keys: a positive rate, three windows, fallback at most
    1%), and ``profile_bench --scene 3 --runs 1`` traces one run of it
    (the busy share at that size); both tools' scene-3 launches must equal
-   phase 12's;
+   phase 12's; the same for scene 4 (``scene4_*`` keys: five windows, K4
+   rows and reads sent to the oracle across chromosomes above 0;
+   ``profile_bench --scene 4 --runs 1``; launches equal to phase 13's);
 12. scene 3 (testing/scenes.py:build_scene3: about 90,750 BAM read pairs
    with BreakDancer calls over 15 Mb, three 5 Mb windows, in the shape of
    the reference pindel's colousingbd15 run) once through the CLI on the
@@ -165,7 +174,27 @@ Phases, in order; any failure exits non-zero:
    the windows, K4 rows, legacy rows, shard kernel launches, search kernel
    launches and peak card memory printed, with each window's reads and
    times; then every K2/K3/K4 call of the run held against the plain
-   versions and the largest of each timed as in 6b.
+   versions and the largest of each timed as in 6b;
+13. scene 4 (testing/scenes.py:build_scene4: about 79,000 BAM read pairs
+   over four chromosomes of 13.5 Mb in one BAM, chrE without reads, with
+   interchromosomal BreakDancer calls, in the shape of a whole-genome
+   run): ``scene4`` (-c ALL -I) once recorded and once with each region's
+   device memory logged, ``scene4_bed`` (-j/-J: chr1 as two regions, chr3)
+   and ``scene4_c`` (one -c region) through the bench's run on the card,
+   each held to the reference's digests (testing/scene4_digests.json) by
+   the bench's gate (the windows, K4 rows, the reads the interchromosomal
+   route sent to the oracle on ``scene4``); ``_INT`` not empty on
+   ``scene4``, ``_INT_final`` empty on the others; at the start of each
+   region's window loop ``torch.cuda.memory_allocated()`` printed, no
+   earlier region's backend alive and the memory no more than one
+   chromosome's device state above the first region's; then ``scene4``
+   through ``--backend mesh`` over ``["cuda:0", "cuda:0"]``, through
+   ``--backend jax`` (the shard kernel launched, the plain
+   ``_search_kernel`` never on the card) and at ``--hosts 2``, each held
+   to the same digests; the standalone scan launched 0 times and
+   ``pt_far_win`` once a K4 call; every K2/K3/K4 call of the recorded run
+   held against the plain versions and the largest of each timed as in
+   6b.
 
 The script imports torch, numpy and pindel_tpu_torch, and no jax.
 ``--profile-dir`` also traces one run of each full-size scene with
@@ -190,7 +219,8 @@ import torch
 
 from pindel_tpu_torch.tools.measure import (PEAK_BYTES, PEAK_INT32_OPS,
                                             card_line, fused_bound,
-                                            row_classes, scan_bound)
+                                            region_log, row_classes,
+                                            scan_bound)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 # the commit whose shard kernel (csrc/sharded_search.cu) the redesign
@@ -199,6 +229,7 @@ PARENT_REV = "6efbcdb"
 PARENT_SOURCE = "pindel_tpu_torch/csrc/sharded_search.cu"
 MAX_FALLBACK = 0.01
 TIMED_RUNS = 3
+HOSTS_TIMED_RUNS = 2        # phase 8c: each rank count, in turns
 # phase 7: the device lists of the mesh runs (None: every visible card)
 MESH_LISTS = {"all": None, "cuda0x2": ["cuda:0", "cuda:0"]}
 # phase 8c: (label, scene, extra flags, --dist, the --hosts values in turn)
@@ -236,15 +267,17 @@ SHARD_PLAIN_ROWS = 512      # rows per call of the plain twin at full width
 SCAN_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "bound_dense_ms")
 # phase 11: (name, module, arguments) of each tool, and each one's time
-# limit in seconds.  The bench repeats scenes that phases 5, 6 and 12 run,
-# so it takes two timed runs of each here (its default is five)
-TOOLS = [("bench", "pindel_tpu_torch.bench", ["--runs", "2"]),
+# limit in seconds.  The bench repeats scenes that phases 5, 6, 12 and 13
+# run, so it takes one timed run of each here (its default is five)
+TOOLS = [("bench", "pindel_tpu_torch.bench", ["--runs", "1"]),
          ("kernel_bench", "pindel_tpu_torch.tools.kernel_bench",
           ["--per-round"]),
          ("profile_bench", "pindel_tpu_torch.tools.profile_bench",
           ["--scene", "1", "--runs", "2"]),
          ("profile_bench_scene3", "pindel_tpu_torch.tools.profile_bench",
           ["--scene", "3", "--runs", "1"]),
+         ("profile_bench_scene4", "pindel_tpu_torch.tools.profile_bench",
+          ["--scene", "4", "--runs", "1"]),
          ("multihost_bench", "pindel_tpu_torch.tools.multihost_bench",
           ["--hosts", "2"])]
 TOOL_TIMEOUT_S = 300
@@ -644,16 +677,23 @@ def check_tools(tools, launches1: int, launches2: int) -> None:
     fused kernels') equal to phases 5 and 6, and scene 3's keys (its
     launches are held to phase 12's there)."""
     b = tools["bench"]
-    times = b["runs"] + b["scene2_runs"] + b["scene3_runs"]
+    times = (b["runs"] + b["scene2_runs"] + b["scene3_runs"]
+             + b["scene4_runs"])
     if not (b["value"] > 0 and b["scene2_value"] > 0
-            and b["scene3_value"] > 0 and all(t > 0 for t in times)):
+            and b["scene3_value"] > 0 and b["scene4_value"] > 0
+            and all(t > 0 for t in times)):
         fail(f"bench: rates {b['value']}, {b['scene2_value']}, "
-             f"{b['scene3_value']}, walls {times}")
-    s3 = {k: v for k, v in b.items() if k.startswith("scene3_")}
-    if not (s3["scene3_windows"] == 3 and s3["scene3_pairs"] > 0
-            and s3["scene3_fallback_ratio"] <= MAX_FALLBACK
-            and s3["scene3_unit"] == "read pairs/s"):
-        fail(f"bench: scene 3 keys {s3}")
+             f"{b['scene3_value']}, {b['scene4_value']}, walls {times}")
+    for key, windows in (("scene3", 3), ("scene4", 5)):
+        sk = {k: v for k, v in b.items() if k.startswith(key + "_")}
+        if not (sk[f"{key}_windows"] == windows and sk[f"{key}_pairs"] > 0
+                and sk[f"{key}_fallback_ratio"] <= MAX_FALLBACK
+                and sk[f"{key}_far_win_rows"] > 0
+                and sk[f"{key}_unit"] == "read pairs/s"):
+            fail(f"bench: {key} keys {sk}")
+    if not b["scene4_oracle_reads"] > 0:
+        fail(f"bench: scene 4 sent {b['scene4_oracle_reads']} reads to the "
+             "oracle across chromosomes")
     if {k: b["launches"][k] for k in ("scene1", "scene2")} != {
             "scene1": launches1, "scene2": launches2}:
         fail(f"bench: search kernel launches {b['launches']}, phases 5 and 6 "
@@ -663,7 +703,8 @@ def check_tools(tools, launches1: int, launches2: int) -> None:
         if not (c["ms"] > 0 and c["k1_ms"] > 0 and c["bound_ms"] > 0
                 and c["launches"] == 1 and c["parent_ms"] > 0):
             fail(f"kernel_bench {call}: {c}")
-    for name in ("profile_bench", "profile_bench_scene3"):
+    for name in ("profile_bench", "profile_bench_scene3",
+                 "profile_bench_scene4"):
         p = tools[name]
         if not (p["busy_share"] is not None and 0 < p["busy_share"] <= 1
                 and p["device_s"] > 0 and all(t > 0 for t in p["runs"])):
@@ -681,11 +722,15 @@ def check_tools(tools, launches1: int, launches2: int) -> None:
     log(f"phase 11: bench {b['value']:.1f} reads/s (scene 1), "
         f"{b['scene2_value']:.1f} read pairs/s (scene 2), "
         f"{b['scene3_value']:.1f} read pairs/s (scene 3, walls "
-        f"{b['scene3_runs']}), search kernel launches {b['launches']}, "
+        f"{b['scene3_runs']}), {b['scene4_value']:.1f} read pairs/s (scene "
+        f"4, walls {b['scene4_runs']}, spread {b['scene4_spread']:.3f}, "
+        f"oracle reads {b['scene4_oracle_reads']}), search kernel launches "
+        f"{b['launches']}, "
         f"scenes 1 "
         f"and 2 equal to phases 5 and 6; profile busy share "
         f"{p['busy_share']:.4%} (scene 1), "
-        f"{tools['profile_bench_scene3']['busy_share']:.4%} (scene 3); "
+        f"{tools['profile_bench_scene3']['busy_share']:.4%} (scene 3), "
+        f"{tools['profile_bench_scene4']['busy_share']:.4%} (scene 4); "
         f"--hosts {m['hosts']} speedup {m['speedup']:.3f}")
 
 
@@ -695,7 +740,9 @@ def tool_summary(tools) -> dict:
     return dict(
         bench=dict(launches=b["launches"], value=b["value"],
                    scene2_value=b["scene2_value"],
-                   scene3_value=b["scene3_value"]),
+                   scene3_value=b["scene3_value"],
+                   scene4_value=b["scene4_value"],
+                   scene4_oracle_reads=b["scene4_oracle_reads"]),
         kernel_bench={k: {x: c[x] for x in ("ms", "parent_ms", "k1_ms",
                                             "bound_ms", "earlier_bound_ms",
                                             "launches")}
@@ -703,12 +750,18 @@ def tool_summary(tools) -> dict:
         profile_bench={name: dict(busy_share=tools[name]["busy_share"],
                                   launches=tools[name]["launches"])
                        for name in ("profile_bench",
-                                    "profile_bench_scene3")},
+                                    "profile_bench_scene3",
+                                    "profile_bench_scene4")},
         multihost_bench=dict(speedup=tools["multihost_bench"]["speedup"]))
 
 
 def main() -> int:
     t_start = time.monotonic()
+
+    def mark(phase: str) -> None:
+        log(f"phase {phase} starts at {time.monotonic() - t_start:.1f} s of "
+            "command time")
+
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile-dir", default=None,
                     help="also trace a run of each full-size scene with "
@@ -738,7 +791,10 @@ def main() -> int:
     from pindel_tpu_torch.pipeline import g_fallback, g_timer, run_files
     from pindel_tpu_torch.testing.scenes import (BAM_SCENES, SCENE1,
                                                  SCENE1_FLAGS, SCENE2,
-                                                 SMALL_SCENES, bam_argv,
+                                                 SCENE4_DIGESTS,
+                                                 SCENE4_RUNS, SMALL_SCENES,
+                                                 SUITE_BACKENDS,
+                                                 SUITE_SCENES, bam_argv,
                                                  digests, legacy_anchors,
                                                  SCENE2_DIGESTS, load_digests,
                                                  load_golden,
@@ -752,6 +808,7 @@ def main() -> int:
         fail(f"the port's imports loaded {loaded}")
     log("imports: no module of pindel_tpu or jax loaded")
 
+    mark("1")
     # ---- 1. environment
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -763,6 +820,7 @@ def main() -> int:
     log(f"card: {card}")
     log(f"host: {host_line()}")
 
+    mark("2")
     # ---- 2. build: one nvcc per kernel source, all started together
     def timed_build(module):
         t0 = time.monotonic()
@@ -801,6 +859,7 @@ def main() -> int:
 
     dev = torch.device("cuda")
     max_err = 0
+    mark("3")
     # ---- 3. kernel vs plain: random cases and extremes
     for seed, w, lmax, rows, lsteps, aligned in RANDOM_CASES:
         case = random_case(seed, w, lmax, rows, aligned, dev)
@@ -840,6 +899,7 @@ def main() -> int:
     log(f"bucket sweep: {len(W_BUCKETS) * len(BUCKET_LMAXES)} cases, "
         "max_abs_err=0")
 
+    mark("3b")
     # ---- 3b. legacy per-lane backend (K8): the route on the card
     from pindel_tpu_torch.config import Settings
     settings_l = Settings()
@@ -1349,6 +1409,7 @@ def main() -> int:
                     want=want, fused=fused)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
+        mark("4")
         # ---- 4. the CLI on small text scenes vs the golden NumPy reports
         golden = load_golden()
         for scene, (scene_kw, flags, _fields) in SMALL_SCENES.items():
@@ -1371,6 +1432,7 @@ def main() -> int:
                 f"reports byte-identical to numpy, launches {launches}, "
                 f"fallback {g_fallback.fallback}/{g_fallback.total}")
 
+        mark("4b")
         # ---- 4b. the CLI on small BAM scenes vs the golden NumPy reports
         for scene, spec in BAM_SCENES.items():
             d = os.path.join(work, scene)
@@ -1406,7 +1468,43 @@ def main() -> int:
                  f"{native.BUILD_DIR}: {outside}")
         log(f"native libraries loaded from {native.BUILD_DIR}: "
             f"{sorted(where)}")
+        # the reference suite's scenes, through each backend named for them
+        for scene, spec in SUITE_SCENES.items():
+            d = os.path.join(work, scene)
+            os.makedirs(d)
+            built = spec.build(d)
+            for backend in SUITE_BACKENDS[scene]:
+                label = f"suite scene {scene} --backend {backend}"
+                prefix = os.path.join(d, backend)
+                reset_counts()
+                engine_jax.PLAIN_ON_CARD = 0
+                run_cli(port_main, bam_argv(spec, built, prefix)
+                        + ["--backend", backend])
+                port = reports(prefix)
+                same_reports(label, golden[scene], port)
+                fused_n = fused_cuda.search_launches()
+                shard_n = sharded_search_cuda.LAUNCHES
+                if backend in ("fused", "mesh"):
+                    check_run(label, fused_n)
+                    check_path(label, engine_fused.FAR_WIN_ROWS)
+                elif backend == "jax" and (not shard_n or fused_n
+                                           or engine_jax.PLAIN_ON_CARD):
+                    fail(f"{label}: shard kernel launches {shard_n}, fused "
+                         f"{fused_n}, plain _search_kernel on the card "
+                         f"{engine_jax.PLAIN_ON_CARD}")
+                elif backend == "numpy" and (fused_n or shard_n):
+                    fail(f"{label}: the host oracle's run launched "
+                         f"{fused_n} fused and {shard_n} shard kernels")
+                if scene.startswith("bam_int") and engine_fused.FAR_WIN_ROWS:
+                    fail(f"{label}: the interchromosomal call's windows sent "
+                         f"{engine_fused.FAR_WIN_ROWS} rows to K4")
+                log(f"{label} {list(spec.flags)}: {len(port)} reports "
+                    f"byte-identical to numpy, launches {launch_counts()}, "
+                    f"shard kernel {shard_n}, _far_win_kernel rows "
+                    f"{engine_fused.FAR_WIN_ROWS}, fallback "
+                    f"{g_fallback.fallback}/{g_fallback.total}")
 
+        mark("5")
         # ---- 5. scene 1 at full size
         s1 = os.path.join(work, "scene1")
         os.makedirs(s1)
@@ -1426,6 +1524,7 @@ def main() -> int:
         scene1 = full_scene("scene 1", argv1, n1, "reads", scene1_reports)
         max_err = max(max_err, scene1["max_abs_err"])
 
+        mark("6")
         # ---- 6. scene 2 at full size
         s2 = os.path.join(work, "scene2")
         os.makedirs(s2)
@@ -1452,6 +1551,7 @@ def main() -> int:
             fail("scene 2: _far_win_kernel searched no read")
         max_err = max(max_err, scene2["max_abs_err"])
 
+        mark("6b")
         # ---- 6b. K2, K3 and K4 on the card: pt_close/pt_far/pt_far_win
         # bit-equal to the plain versions at every fused call of scenes 1
         # and 2 (phases 5 and 6 recorded them; scene 3's in phase 12) and on
@@ -1549,6 +1649,7 @@ def main() -> int:
             f"{pin_us:.1f} us of host time to allocate, after the first  "
             f"[{card}]")
 
+        mark("7")
         # ---- 7. scenes 1 and 2 through the data-parallel mesh backend,
         # in turns with the fused backend (fused, mesh..., then reversed)
         def run_backend(argv, devices) -> float:
@@ -1678,6 +1779,7 @@ def main() -> int:
                             str(k): v for k, v in med["by_card"].items()},
                         wall=med["wall"], fused_wall=fused_med)
 
+        mark("8")
         # ---- 8. multi-process window sharding, rank 0 in this process
         from pindel_tpu_torch.parallel import multihost
 
@@ -1811,7 +1913,7 @@ def main() -> int:
             n, unit = (n1, "reads") if key == "scene1" else (n2, "read pairs")
             runs = {h: [] for h in counts}
             want = None
-            for i in range(TIMED_RUNS):
+            for i in range(HOSTS_TIMED_RUNS):
                 for hosts in (counts if i % 2 == 0 else counts[::-1]):
                     hlabel = f"{label} {' '.join(flags)} --hosts {hosts}"
                     argv = argv_of(f"timed_h{hosts}_{i}") + flags
@@ -1832,10 +1934,11 @@ def main() -> int:
                     log_ranks(f"{hlabel} run {i}", ranks)
             for hosts in counts:
                 walls = [r["wall"] for r in runs[hosts]]
-                med = runs[hosts][walls.index(statistics.median(walls))]
+                med = runs[hosts][walls.index(statistics.median_low(walls))]
                 log(f"{label} {' '.join(flags)} --hosts {hosts} --dist "
-                    f"{dist}: median wall {med['wall']:.3f} s of "
-                    f"{TIMED_RUNS} in turns ({n / med['wall']:.1f} {unit}/s"
+                    f"{dist}: median (low) wall {med['wall']:.3f} s of "
+                    f"{HOSTS_TIMED_RUNS} in turns ({n / med['wall']:.1f} "
+                    f"{unit}/s"
                     f"), reports equal to --hosts 1, launches "
                     f"{counts_of(med['ranks'])}  [{card}]")
                 for r in med["ranks"]:
@@ -1846,6 +1949,7 @@ def main() -> int:
                 hosts_paths[f"{key}_timed_hosts{hosts}"] = dict(
                     **counts_of(med["ranks"]), wall=med["wall"])
 
+        mark("9")
         # ---- 9. the window-parallel search (K9)
         from pindel_tpu_torch.genome import Genome
         from pindel_tpu_torch.parallel.mesh import TorchShardedBackend
@@ -2192,6 +2296,7 @@ def main() -> int:
                  f"(max {k9_err})")
         del small_calls
 
+        mark("10")
         # ---- 10. scenes 1 and 2 through --backend jax: K8 on the card, so
         # every search through the route and the shard kernel
         jax_paths = {}
@@ -2271,12 +2376,14 @@ def main() -> int:
             del args, want, out
             torch.cuda.empty_cache()
 
+    mark("11")
     # ---- 11. the measurement tools, each in a fresh interpreter
     torch.cuda.empty_cache()
     tools = {name: run_tool(name, module, argv, card)
                for name, module, argv in TOOLS}
     check_tools(tools, scene1["search"], scene2["search"])
 
+    mark("12")
     # ---- 12. scene 3 once through the CLI: three windows of BAM pairs with
     # BreakDancer calls, every scan call held against the plain version
     from pindel_tpu_torch import bench
@@ -2348,6 +2455,216 @@ def main() -> int:
                   legacy_rows=c3["legacy_rows"],
                   windows=c3["windows"], peak_mib=c3["peak_mib"])
 
+    mark("13")
+    # ---- 13. scene 4: four chromosomes in one BAM (chrE without reads),
+    # interchromosomal BreakDancer calls (-I) and regions (-j/-J, -c)
+    from pindel_tpu_torch.testing.scenes import build_scene4
+    want4 = load_digests(SCENE4_DIGESTS)
+
+    def check_regions(label, rows, chroms):
+        """One backend a region, none outliving it, and the card's memory
+        at each region's start no more than one chromosome's state above
+        the first region's."""
+        if [r["chrom"] for r in rows] != chroms:
+            fail(f"{label}: regions {[r['chrom'] for r in rows]}, not "
+                 f"{chroms}")
+        state = max(r["state_bytes"] for r in rows)
+        for r in rows:
+            log(f"{label} region on {r['chrom']}: memory allocated at its "
+                f"window loop's start {r['allocated'] / 2 ** 20:.1f} MiB, "
+                f"its device state {r['state_bytes'] / 2 ** 20:.1f} MiB, "
+                f"backends alive {r['alive']}  [{card}]")
+            if r["alive"] != 1:
+                fail(f"{label}: {r['alive']} backends alive at the start of "
+                     f"the region on {r['chrom']}")
+            if r["allocated"] > rows[0]["allocated"] + state:
+                fail(f"{label}: {r['allocated']} bytes allocated at the "
+                     f"region on {r['chrom']}, more than one chromosome's "
+                     f"state ({state}) above the first region's "
+                     f"{rows[0]['allocated']}")
+
+    def run_counts(c):
+        return dict(launches=c["scan_launches"],
+                    close_launches=c["close_launches"],
+                    far_launches=c["far_launches"],
+                    far_win_launches=c["far_win_launches"])
+
+    scene4_paths = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_scene4_") as s4:
+        t0 = time.monotonic()
+        paths4 = build_scene4(s4)
+        n4 = int(paths4["pairs"])
+        log(f"scene 4: {n4} read pairs over 13500000 bp of four chromosomes "
+            f"({paths4['events']} local events, "
+            f"{paths4['translocation_reads']} translocation reads, "
+            f"{paths4['ctx_reads']} reads near a CTX call's breakpoints), "
+            f"built in {time.monotonic() - t0:.1f} s")
+        windows4 = {"scene4": 5, "scene4_bed": 3, "scene4_c": 1}
+        regions4 = {"scene4": ["chr1", "chr2", "chr3", "chrE"],
+                    "scene4_bed": ["chr1", "chr1", "chr3"],
+                    "scene4_c": ["chr2"]}
+        specs4 = {name: bench.bam_scene(
+            name, paths4, n4, want4[name], windows=windows4[name],
+            spec=SCENE4_RUNS[name],
+            oracle_reads=int(paths4["ctx_reads"]) if name == "scene4"
+            else None) for name in SCENE4_RUNS}
+
+        def bench_run(name, prefix):
+            return bench.run(specs4[name], os.path.join(s4, prefix),
+                             torch.device("cuda:0"))
+
+        # a. scene4 recorded (first use), then again with the region log
+        reset_counts()
+        engine_jax.PLAIN_ON_CARD = 0
+        run4, fused4 = recorded(lambda: bench_run("scene4", "rec"))
+        k4_calls4 = sum(c[0] == "_far_win_kernel" for c in fused4)
+        with region_log() as rows4:
+            warm4 = bench_run("scene4", "warm")
+        for label, r in (("scene 4 recorded", run4),
+                         ("scene 4 warm", warm4)):
+            bad = bench.problems(specs4["scene4"], [r], kernel=True)
+            if bad:
+                fail(f"{label}: {bad}")
+            c = r["counters"]
+            if c["scan_launches"]:
+                fail(f"{label}: the standalone scan launched "
+                     f"{c['scan_launches']} times on the CLI path")
+            if not k4_calls4 or c["far_win_launches"] != k4_calls4:
+                fail(f"{label}: pt_far_win launched {c['far_win_launches']} "
+                     f"times for {k4_calls4} K4 calls")
+        if engine_jax.PLAIN_ON_CARD:
+            fail(f"scene 4: the plain _search_kernel ran "
+                 f"{engine_jax.PLAIN_ON_CARD} times on the card")
+        c4 = warm4["counters"]
+        log(f"scene 4 (-c ALL -I): walls {run4['wall']:.3f} s (first use), "
+            f"{warm4['wall']:.3f} s ({n4 / warm4['wall']:.1f} read pairs/s), "
+            f"reports equal to the reference's digests, windows "
+            f"{c4['windows']} (visited {c4['windows_visited']}), search "
+            f"kernel launches {c4['launches']} (standalone scan "
+            f"{c4['scan_launches']}, pt_close/pt_far/pt_far_win "
+            f"{c4['close_launches']}/{c4['far_launches']}/"
+            f"{c4['far_win_launches']} for {k4_calls4} K4 calls), "
+            f"_far_win_kernel rows {c4['far_win_rows']}, legacy rows "
+            f"{c4['legacy_rows']}, shard kernel launches "
+            f"{c4['shard_launches']}, reads sent to the oracle across "
+            f"chromosomes {c4['oracle_reads']} (at most "
+            f"{paths4['ctx_reads']}), peak card memory "
+            f"{c4['peak_mib']:.1f} MiB  [{card}]")
+        for w in c4["by_window"]:
+            log(f"  scene 4 window {w['index']} [{w['start']}, {w['end']}):"
+                f" {w['reads']} reads, read in at {w['read_s']:.3f} s, "
+                f"staged at {w.get('staged_s', float('nan')):.3f} s, "
+                f"reported at {w.get('done_s', float('nan')):.3f} s")
+        for pname, sec in sorted(warm4["phases"].items(),
+                                 key=lambda kv: -kv[1])[:12]:
+            log(f"  phase {pname:<52s} {sec:9.3f} s  [{card}]")
+        check_regions("scene 4", rows4, regions4["scene4"])
+        got4 = reports(os.path.join(s4, "warm"))
+        if not (b"Anchor + chr1" in got4["INT"] and got4["INT_final"]):
+            fail("scene 4: _INT or _INT_final is empty")
+        scene4_paths["scene4"] = dict(
+            run_counts(c4), wall=warm4["wall"], first_wall=run4["wall"],
+            far_win_rows=c4["far_win_rows"], legacy_rows=c4["legacy_rows"],
+            oracle_reads=c4["oracle_reads"], windows=c4["windows"],
+            peak_mib=c4["peak_mib"],
+            region_allocated_mib=[r["allocated"] / 2 ** 20 for r in rows4])
+
+        # b. the BED regions and the -c region
+        for name in ("scene4_bed", "scene4_c"):
+            reset_counts()
+            with region_log() as rows:
+                r = bench_run(name, name)
+            bad = bench.problems(specs4[name], [r], kernel=True)
+            if bad:
+                fail(f"{name}: {bad}")
+            c = r["counters"]
+            got = reports(os.path.join(s4, name))
+            if got.get("INT") or got["INT_final"] != b"":
+                fail(f"{name}: _INT or _INT_final is not empty without -I")
+            check_path(name, c["far_win_rows"])
+            log(f"{name} {list(SCENE4_RUNS[name].flags)}: wall "
+                f"{r['wall']:.3f} s, reports equal to the reference's "
+                f"digests, windows {c['windows']}, launches "
+                f"{launch_counts()}, _far_win_kernel rows "
+                f"{c['far_win_rows']}, legacy rows {c['legacy_rows']}, "
+                f"oracle reads across chromosomes {c['oracle_reads']}, "
+                f"peak card memory {c['peak_mib']:.1f} MiB  [{card}]")
+            check_regions(name, rows, regions4[name])
+            scene4_paths[name] = dict(run_counts(c), wall=r["wall"],
+                                      windows=c["windows"],
+                                      peak_mib=c["peak_mib"])
+
+        # c. scene4 through the mesh over cuda:0 twice, --backend jax and
+        # --hosts 2, each held to the same digests
+        def argv4(prefix):
+            return bam_argv(SCENE4_RUNS["scene4"], paths4,
+                            os.path.join(s4, prefix))
+
+        label = "scene 4 --backend mesh over cuda:0 x2"
+        reset_counts()
+        wall = run_backend(argv4("mesh"), MESH_LISTS["cuda0x2"])
+        if digests(reports(os.path.join(s4, "mesh"))) != want4["scene4"]:
+            fail(f"{label}: reports differ from the reference's digests")
+        check_run(label, fused_cuda.search_launches())
+        check_path(label, engine_fused.FAR_WIN_ROWS)
+        log(f"{label}: wall {wall:.3f} s, reports equal to the digests, "
+            f"launches {launch_counts()}, by card "
+            f"{dict(fused_cuda.LAUNCHES_BY_DEVICE)}  [{card}]")
+        scene4_paths["scene4_mesh_cuda0x2"] = dict(
+            launches=scan_cuda.LAUNCHES,
+            close_launches=fused_cuda.LAUNCHES_BY_KERNEL["close"],
+            far_launches=fused_cuda.LAUNCHES_BY_KERNEL["far"],
+            far_win_launches=fused_cuda.LAUNCHES_BY_KERNEL["far_win"],
+            wall=wall)
+
+        label = "scene 4 --backend jax"
+        reset_counts()
+        engine_jax.PLAIN_ON_CARD = 0
+        wall = run_cli(port_main, argv4("jax") + ["--backend", "jax"])
+        if digests(reports(os.path.join(s4, "jax"))) != want4["scene4"]:
+            fail(f"{label}: reports differ from the reference's digests")
+        if not sharded_search_cuda.LAUNCHES or engine_jax.PLAIN_ON_CARD \
+                or fused_cuda.search_launches():
+            fail(f"{label}: shard kernel launches "
+                 f"{sharded_search_cuda.LAUNCHES}, plain _search_kernel on "
+                 f"the card {engine_jax.PLAIN_ON_CARD}, fused launches "
+                 f"{fused_cuda.search_launches()}")
+        log(f"{label}: wall {wall:.3f} s, reports equal to the digests, "
+            f"legacy rows {engine_jax.LEGACY_ROWS}, shard kernel launches "
+            f"{sharded_search_cuda.LAUNCHES}  [{card}]")
+        k9_scene4 = dict(launches=sharded_search_cuda.LAUNCHES, wall=wall,
+                         legacy_rows=engine_jax.LEGACY_ROWS)
+
+        label = "scene 4 --hosts 2 --dist files"
+        reset_counts()
+        wall = run_hosts(argv4("hosts2"), 2, "files")
+        if digests(reports(os.path.join(s4, "hosts2"))) != want4["scene4"]:
+            fail(f"{label}: reports differ from the reference's digests")
+        ranks = rank_records(label, 2)
+        if not all(r["windows"] for r in ranks):
+            fail(f"{label}: a rank owned no window: {ranks}")
+        counts = counts_of(ranks, label)
+        if not counts["far_win_launches"]:
+            fail(f"{label}: pt_far_win never launched")
+        log(f"{label}: wall {wall:.3f} s, reports equal to the digests, "
+            f"launches {counts}  [{card}]")
+        log_ranks(label, ranks)
+        scene4_paths["scene4_hosts2_files"] = dict(
+            **counts, launches_by_rank=[r["launches_by_card"]
+                                        for r in ranks], wall=wall)
+
+        # d. K2, K3 and K4 at every call of the recorded run against the
+        # plain versions, the largest of each timed, as 6b
+        whole["scene4"] = check_fused("scene 4", fused4)
+        del fused4
+        torch.cuda.empty_cache()
+    for name in ("bench", "profile_bench_scene4"):
+        got = tools[name]["launches"]
+        got = got["scene4"] if name == "bench" else got
+        if got != run4["counters"]["launches"]:
+            fail(f"{name}: scene 4 search kernel launches {got}, phase 13 "
+                 f"{run4['counters']['launches']}")
+
     loaded = reference_modules()
     if loaded:
         fail(f"a run loaded {loaded}")
@@ -2360,6 +2677,7 @@ def main() -> int:
                                        *SCAN_KEYS, "wall")}
              for label, v in (("scene1", scene1), ("scene2", scene2))}
     paths["scene3"] = scene3
+    paths.update(scene4_paths)
     paths.update(mesh_paths)
     paths.update(hosts_paths)
     # K1 at scene 1's largest shape (its largest K2 call's, as the
@@ -2411,6 +2729,7 @@ def main() -> int:
     k9_paths.update(jax_paths)
     k9_paths["scene3_legacy_lanes"] = dict(launches=c3["shard_launches"],
                                            legacy_rows=c3["legacy_rows"])
+    k9_paths["scene4_jax"] = k9_scene4
     kernels.append(dict(
         name="sharded_search", route="cuda",
         source="pindel_tpu_torch/csrc/sharded_search.cu",
@@ -2421,8 +2740,8 @@ def main() -> int:
         plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
         bound_by=top["bound_by"], bound_earlier_ms=top["bound_earlier_ms"],
         library_ms=None, paths=k9_paths))
-    # K2, K3 and K4 at the largest call of each over scenes 1-3 (phases 6b
-    # and 12), timed in turns with the composition they replaced
+    # K2, K3 and K4 at the largest call of each over scenes 1-4 (phases 6b,
+    # 12 and 13), timed in turns with the composition they replaced
     # (parent_ms); launches over every path
     for kname, short, line in (("_close_kernel", "close", 513),
                                ("_far_kernel", "far", 626),
@@ -2441,6 +2760,7 @@ def main() -> int:
             bound_by=top["bound_by"], share=top["bound_ms"] / top["ms"],
             earlier_bound_ms=top["earlier_bound_ms"], library_ms=None,
             calls=rows))
+    mark("end")
     log(json.dumps({"kernels": kernels}))
     log(f"chip_smoke: total command time {time.monotonic() - t_start:.1f} s")
     log(card)

@@ -1,17 +1,22 @@
 """Benchmark of the port: split-reads/s on scene 1 and read pairs/s on
-scenes 2 and 3, through the port's CLI on the card, gated on the
+scenes 2, 3 and 4, through the port's CLI on the card, gated on the
 reference's reports.
 
     python -m pindel_tpu_torch.bench [--runs 5] [--device cuda|cpu]
+                                     [--scenes scene1,scene2,scene3,scene4]
 
 The counterpart of the repository's ``bench.py``, with the same scenes
 (``testing/scenes.py``: ``SCENE1`` at ``SCENE1_FLAGS``, 50,000 pindel-text
 reads over 6 Mb; ``SCENE2``, 12,000 BAM read pairs over 2 Mb with a
 BreakDancer calls file; ``SCENE3``, about 90,750 BAM read pairs with
 BreakDancer calls over 15 Mb, three 5 Mb windows, in the shape of the
-reference pindel's ``colousingbd15`` run) run through ``python -m
-pindel_tpu_torch --backend fused``.  Scene generation and the builds of
-the search kernels and the native libraries are set-up; each scene then takes
+reference pindel's ``colousingbd15`` run; ``SCENE4``, about 79,000 BAM read
+pairs over four chromosomes of 13.5 Mb in one BAM, one of them without
+reads, with interchromosomal BreakDancer calls, at ``-c ALL -I``: five
+windows) run through ``python -m pindel_tpu_torch --backend fused``;
+``--scenes`` runs a subset, in that order.  Scene generation and the
+builds of the search kernels and the native libraries are set-up; each
+scene then takes
 one untimed run (its first use), then ``--runs`` timed runs, each wall
 read after ``torch.cuda.synchronize()``.  A scene whose first run fails
 its gate is not timed.
@@ -23,29 +28,35 @@ may take the host oracle, the search kernels' launches (the scan's and
 the fused kernels': close, far and far_win) must be equal from run to run,
 and on a card they must have launched and, on the BreakDancer scenes,
 ``_far_win_kernel`` (K4) must have searched rows, through ``pt_far_win``.
-Scene 3 must also span its three windows.  A failed gate prints
-``"value": 0.0`` and ``"correct": false`` and exits 1, whichever scene
-failed.  There is no ``vs_baseline``: ``bench.py`` times
+Scenes 3 and 4 must also span their three and five windows, and on scene
+4 the interchromosomal route (``Searcher._far_round``) must have sent
+reads to the NumPy oracle (``measure.oracle_reads``), no more than the
+reads anchored near a breakpoint of the scene's CTX calls.  A failed
+gate prints ``"value": 0.0`` and ``"correct": false`` and exits 1,
+whichever scene failed.  There is no ``vs_baseline``: ``bench.py`` times
 the reference pindel compiled from a C++ checkout that is not part of this
 repository, and the port's gate is the JAX package's reports instead.
 
 Progress goes to standard error.  The last line of standard output is one
-JSON object: ``metric``, ``value`` (scene 1's median rate), ``unit``,
-``runs`` (the walls), ``best`` (the rate of the fastest run), ``spread``
-((max - min) / median of the walls), ``fallback_ratio``; for scenes 2 and
-3 ``sceneN_value``, ``sceneN_unit``, ``sceneN_runs``,
-``sceneN_fallback_ratio``, ``sceneN_pairs`` and ``sceneN_windows`` (the
-windows over the chromosome's bases; the window loop also visits an empty
-window at the chromosome's end when its length is a multiple of the
-window, as the reference's does); ``correct``, ``layers`` (each scene's
+JSON object: ``metric``, ``value`` (the median rate of the first scene
+run, scene 1's unless ``--scenes`` leaves it out), ``unit``, ``runs`` (the
+walls), ``best`` (the rate of the fastest run), ``spread`` ((max - min) /
+median of the walls), ``fallback_ratio``; for every other scene
+``sceneN_value``, ``sceneN_unit``, ``sceneN_runs``, ``sceneN_spread``,
+``sceneN_fallback_ratio``, ``sceneN_pairs``, ``sceneN_windows`` (the
+windows over the chromosomes' bases; the window loop also visits an empty
+window at a chromosome's end when its length is a multiple of the
+window, as the reference's does), ``sceneN_far_win_rows`` (K4's rows) and
+``sceneN_oracle_reads`` (reads sent to the oracle across chromosomes);
+``correct``, ``layers`` (each scene's
 coarse timer phases of its last timed run; they overlap, so they are
 phases, not shares of the wall), ``launches`` (the search kernels'
 launches in each scene's last run), ``counters`` (each scene's last run:
 search kernel launches, the scan's and each fused kernel's apart, windows
-visited and with bases, ``_far_win_kernel`` rows, legacy
-per-lane rows, shard kernel launches, peak card memory in MiB, and per
-window its reads and the seconds at which it was read in, staged and
-reported), ``device`` (the card's name and power limit), and the set-up
+visited and with bases, ``_far_win_kernel`` rows, legacy per-lane rows,
+reads sent to the oracle across chromosomes, shard kernel launches, peak
+card memory in MiB, and per window its reads and the seconds at which it
+was read in, staged and reported), ``device`` (the card's name and power limit), and the set-up
 times (``build_s``, ``scene_build_s``, ``first_use_s``).
 """
 from __future__ import annotations
@@ -71,9 +82,10 @@ from pindel_tpu_torch.profiling import g_fallback, g_timer
 from pindel_tpu_torch.testing.scenes import (SCENE1, SCENE1_DIGESTS,
                                              SCENE1_FLAGS, SCENE2,
                                              SCENE2_DIGESTS, SCENE3,
-                                             SCENE3_DIGESTS, bam_argv,
-                                             digests, load_digests, reports,
-                                             write_scene)
+                                             SCENE3_DIGESTS, SCENE4,
+                                             SCENE4_DIGESTS, BamScene,
+                                             bam_argv, digests, load_digests,
+                                             reports, write_scene)
 from pindel_tpu_torch.tools import measure
 
 METRIC = "split-reads/s"
@@ -87,8 +99,10 @@ class Scene:
     """A benchmark scene: its name, unit, size, its CLI run (output prefix
     -> arguments, ``--device`` left out), the sha256 of the reference's
     reports, by suffix, whether a kernel run must send rows through
-    ``_far_win_kernel`` (BreakDancer calls), and the windows over its
-    chromosome's bases it must span (None: not checked)."""
+    ``_far_win_kernel`` (BreakDancer calls), the windows over its
+    chromosomes' bases it must span, and the most reads the
+    interchromosomal route may send to the oracle, which must send at
+    least one (None: neither checked)."""
 
     name: str
     unit: str
@@ -97,6 +111,7 @@ class Scene:
     want: Dict[str, str]
     far_win: bool = False
     windows: Optional[int] = None
+    oracle_reads: Optional[int] = None
 
 
 def text_scene(name: str, fa: str, reads_txt: str, n: int,
@@ -108,13 +123,16 @@ def text_scene(name: str, fa: str, reads_txt: str, n: int,
 
 
 def bam_scene(name: str, paths: Dict[str, str], n: int,
-              want: Dict[str, str], windows: Optional[int] = None) -> Scene:
+              want: Dict[str, str], windows: Optional[int] = None,
+              spec: BamScene = SCENE2,
+              oracle_reads: Optional[int] = None) -> Scene:
     """A BAM + BreakDancer scene of ``n`` read pairs (``paths`` as
-    ``SCENE2.build`` gives them) run at scene 2's flags."""
+    ``spec.build`` gives them) run at ``spec``'s flags (scene 2's by
+    default)."""
     return Scene(name, "read pairs", n,
-                 lambda prefix: bam_argv(SCENE2, paths, prefix)
+                 lambda prefix: bam_argv(spec, paths, prefix)
                  + ["--backend", "fused"], want, far_win=True,
-                 windows=windows)
+                 windows=windows, oracle_reads=oracle_reads)
 
 
 def build_scene1(d: str) -> Scene:
@@ -135,9 +153,16 @@ def build_scene3(d: str) -> Scene:
                      load_digests(SCENE3_DIGESTS), windows=3)
 
 
-# the scenes in the order they run: scene 1 gives the metric
+def build_scene4(d: str) -> Scene:
+    paths = SCENE4.build(d)
+    return bam_scene("scene4", paths, int(paths["pairs"]),
+                     load_digests(SCENE4_DIGESTS)["scene4"], windows=5,
+                     spec=SCENE4, oracle_reads=int(paths["ctx_reads"]))
+
+
+# the scenes in the order they run: the first gives the metric
 SCENES = {"scene1": build_scene1, "scene2": build_scene2,
-          "scene3": build_scene3}
+          "scene3": build_scene3, "scene4": build_scene4}
 
 
 def log(msg: str) -> None:
@@ -155,7 +180,7 @@ def run(scene: Scene, prefix: str, dev) -> dict:
     engine_jax.LEGACY_ROWS = 0
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    with measure.window_log() as windows:
+    with measure.window_log() as windows, measure.oracle_reads() as oracle:
         t0 = time.monotonic()
         rc = port_main(scene.argv_of(prefix) + ["--device", str(dev)])
         measure.sync(dev)
@@ -174,6 +199,7 @@ def run(scene: Scene, prefix: str, dev) -> dict:
         windows_visited=len(windows),
         far_win_rows=engine_fused.FAR_WIN_ROWS,
         legacy_rows=engine_jax.LEGACY_ROWS,
+        oracle_reads=oracle["reads"],
         shard_launches=sharded_search_cuda.LAUNCHES,
         peak_mib=(torch.cuda.max_memory_allocated(dev) / 2 ** 20
                   if dev.type == "cuda" else None),
@@ -210,6 +236,11 @@ def problems(scene: Scene, runs: List[dict], kernel: bool) -> List[str]:
                 "far_win_launches"):
             out.append(f"{scene.name} run {i}: K4 rows "
                        f"{c['far_win_rows']} but pt_far_win never launched")
+        if scene.oracle_reads is not None and not (
+                0 < c.get("oracle_reads", 0) <= scene.oracle_reads):
+            out.append(f"{scene.name} run {i}: {c.get('oracle_reads')} "
+                       "reads sent to the oracle across chromosomes, not "
+                       f"1 to {scene.oracle_reads}")
     launches = {r["launches"] for r in runs}
     if len(launches) != 1:
         out.append(f"{scene.name}: search kernel launches differ between "
@@ -233,9 +264,16 @@ def main(argv=None) -> int:
                     help=f"timed runs of each scene (default {RUNS})")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
+    ap.add_argument("--scenes", default=",".join(SCENES),
+                    help="comma-separated scenes to run, in this order "
+                         f"(default {','.join(SCENES)})")
     args = ap.parse_args(argv)
     if args.runs < 1:
         ap.error("--runs must be at least 1")
+    chosen = [key for key in SCENES if key in args.scenes.split(",")]
+    unknown = set(args.scenes.split(",")) - set(SCENES)
+    if unknown or not chosen:
+        ap.error(f"--scenes takes {', '.join(SCENES)}, not {args.scenes}")
     dev = resolve_device(args.device)
     card = measure.device_line(dev)
     log(f"device: {card}")
@@ -248,7 +286,8 @@ def main(argv=None) -> int:
     out = {}
     failed = []
     with tempfile.TemporaryDirectory(prefix="pindel_tpu_torch_bench_") as work:
-        for key, build in SCENES.items():
+        for key in chosen:
+            build = SCENES[key]
             d = os.path.join(work, key)
             os.makedirs(d)
             t0 = time.monotonic()
@@ -275,7 +314,8 @@ def main(argv=None) -> int:
                 f"{c['launches']}, fallback {timed[-1]['fallback']}, "
                 f"windows {c['windows']} (visited {c['windows_visited']}), "
                 f"_far_win_kernel rows {c['far_win_rows']}, legacy rows "
-                f"{c['legacy_rows']}, shard launches {c['shard_launches']}, "
+                f"{c['legacy_rows']}, oracle reads across chromosomes "
+                f"{c['oracle_reads']}, shard launches {c['shard_launches']}, "
                 f"peak card memory {c['peak_mib']} MiB  [{card}]")
             for w in c["by_window"]:
                 log(f"  window {w['index']} [{w['start']}, {w['end']}): "
@@ -286,31 +326,39 @@ def main(argv=None) -> int:
                             last=timed[-1], built=built,
                             first=first["wall"])
 
-    s1 = out["scene1"]
+    s1 = out[chosen[0]]
     correct = not failed
 
     def rate(s):
         return s["scene"].n / s["median"] if correct else 0.0
 
+    def spread(s):
+        return (max(s["walls"]) - min(s["walls"])) / s["median"]
+
     result = {
-        "metric": METRIC,
+        "metric": (METRIC if chosen[0] == "scene1"
+                   else s1["scene"].unit.replace(" ", "-") + "/s"),
         "value": rate(s1),
-        "unit": "reads/s",
+        "unit": f"{s1['scene'].unit}/s",
         "runs": s1["walls"],
         "best": s1["scene"].n / min(s1["walls"]) if correct else 0.0,
-        "spread": (max(s1["walls"]) - min(s1["walls"])) / s1["median"],
+        "spread": spread(s1),
         "fallback_ratio": s1["last"]["fallback"],
     }
     for key, s in out.items():
         if key == "scene1":
             continue
+        c = s["last"]["counters"]
         result.update({
             f"{key}_value": rate(s),
             f"{key}_unit": f"{s['scene'].unit}/s",
             f"{key}_runs": s["walls"],
+            f"{key}_spread": spread(s),
             f"{key}_fallback_ratio": s["last"]["fallback"],
             f"{key}_pairs": s["scene"].n,
-            f"{key}_windows": s["last"]["counters"]["windows"]})
+            f"{key}_windows": c["windows"],
+            f"{key}_far_win_rows": c["far_win_rows"],
+            f"{key}_oracle_reads": c["oracle_reads"]})
     result.update({
         "correct": correct,
         "layers": {k: coarse(v["last"]["phases"]) for k, v in out.items()},

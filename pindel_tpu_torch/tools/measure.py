@@ -1,6 +1,8 @@
 """What the port's measurement scripts share: the card's published peaks,
 the scan kernel's bound, the fused kernels' bound, the card line, CUDA event timing, the
-device-busy share of a profiled run and the record of a run's windows.
+device-busy share of a profiled run, the record of a run's windows and
+regions, and the count of the reads it sent to the oracle across
+chromosomes.
 
 Used by ``chip_smoke.py`` and the tools (``pindel_tpu_torch.bench``,
 ``pindel_tpu_torch.tools.*``).  A tool runs on the card unless it is
@@ -13,6 +15,7 @@ from __future__ import annotations
 import contextlib
 import subprocess
 import time
+import weakref
 
 import torch
 
@@ -313,3 +316,79 @@ def window_log():
     finally:
         for name, fn in real.items():
             setattr(Pipeline, name, fn)
+
+
+@contextlib.contextmanager
+def oracle_reads():
+    """Counts, over the runs inside the context, the reads whose far-end
+    lanes ``Searcher._far_round`` sends to the NumPy oracle because one of
+    them lies on another chromosome than the device backend's (search.py:
+    the interchromosomal route, which adds nothing to ``g_fallback``).
+    The test is ``_far_round``'s own, stated over the reads' regions (a
+    read's lanes carry its regions' chromosome names); the copied
+    ``search.py`` is left as it is.  Yields a dict whose ``reads`` grows."""
+    from pindel_tpu_torch.search import Searcher
+    real = Searcher._far_round
+    count = {"reads": 0}
+
+    def far_round(self, reads, regions, backend=None):
+        name = getattr(self.backend if backend is None else backend,
+                       "chrom_name", None)
+        if name is not None:
+            count["reads"] += sum(any(c.name != name for c, _s, _e in regs)
+                                  for regs in regions)
+        return real(self, reads, regions, backend)
+
+    Searcher._far_round = far_round
+    try:
+        yield count
+    finally:
+        Searcher._far_round = real
+
+
+@contextlib.contextmanager
+def region_log():
+    """Records each BED region of the runs inside the context when its
+    window loop starts: its chromosome, the bytes of its backend's device
+    state, the backend's card's allocated memory (None on the CPU) and how
+    many of the backends made so far are alive (the record holds them by
+    weak reference, so a region's backend that outlives it shows here).
+    Yields the list it fills; a run without a device backend (``numpy``)
+    records its regions with None for the backend's values."""
+    from pindel_tpu_torch import pipeline
+    rows, made = [], []
+    real_factory = pipeline.make_backend_factory
+    real_window = pipeline.LoopingSearchWindow
+
+    def make_backend_factory(*args, **kw):
+        factory = real_factory(*args, **kw)
+        if factory is None:
+            return None
+
+        def tracked(chrom):
+            backend = factory(chrom)
+            st = backend.state
+            made.append((weakref.ref(backend), st.chrom.device, sum(
+                t.numel() * t.element_size()
+                for t in (st.chrom, st.chromcat, st.maxmm))))
+            return backend
+        return tracked
+
+    class Window(real_window):
+        def __init__(self, chrom, *args, **kw):
+            super().__init__(chrom, *args, **kw)
+            _ref, dev, state = made[-1] if made else (None, None, None)
+            rows.append(dict(
+                chrom=chrom.name, state_bytes=state,
+                allocated=(torch.cuda.memory_allocated(dev)
+                           if dev is not None and dev.type == "cuda"
+                           else None),
+                alive=sum(ref() is not None for ref, _d, _s in made)))
+
+    pipeline.make_backend_factory = make_backend_factory
+    pipeline.LoopingSearchWindow = Window
+    try:
+        yield rows
+    finally:
+        pipeline.make_backend_factory = real_factory
+        pipeline.LoopingSearchWindow = real_window

@@ -2,12 +2,13 @@
 registry, trace the last run with ``torch.profiler`` and, optionally,
 cProfile.
 
-    python -m pindel_tpu_torch.tools.profile_bench [--scene 1|2|3]
+    python -m pindel_tpu_torch.tools.profile_bench [--scene 1|2|3|4]
         [--backend fused] [--runs 2] [--threads 1] [--cprofile]
         [--sort cumulative] [--trace DIR] [--device cuda|cpu]
 
 The counterpart of ``tools/profile_bench.py``.  The scene (``bench.py``'s
-scene 1 or 2, or the port's scene 3, built by ``pindel_tpu_torch.bench``)
+scene 1 or 2, or the port's scene 3 or 4, built by
+``pindel_tpu_torch.bench``)
 is written under the
 system's temporary directory.  Each run goes through the port's CLI with
 the scene's flags, ``-T THREADS``, ``--backend BACKEND`` and ``--profile``;
@@ -52,7 +53,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m pindel_tpu_torch.tools.profile_bench",
         description=__doc__.splitlines()[0])
-    ap.add_argument("--scene", type=int, choices=(1, 2, 3), default=1)
+    ap.add_argument("--scene", type=int, choices=(1, 2, 3, 4), default=1)
     ap.add_argument("--backend", default="fused", choices=BACKENDS)
     ap.add_argument("--cprofile", action="store_true",
                     help="also run cProfile over the last run")

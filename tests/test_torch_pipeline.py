@@ -3,8 +3,9 @@ the JAX package's ``fused`` and ``numpy`` backends on simulated scenes, and
 its runtime must not import jax.  The NumPy backend's reports are also the
 golden files that chip_smoke.py holds the port to on the GPU machine, which
 has no jax; ``PYTHONPATH=. python tests/test_torch_pipeline.py
---write-golden`` rewrites them, for these pindel-text scenes and for the
-BAM scenes of tests/test_torch_bam.py."""
+--write-golden`` rewrites them, for these pindel-text scenes, for the
+BAM scenes of tests/test_torch_bam.py and for the reference suite's scenes
+of tests/test_torch_suite_scenes.py."""
 import os
 import subprocess
 import sys
@@ -20,7 +21,8 @@ from pindel_tpu_torch.__main__ import main
 from pindel_tpu_torch.pipeline import run_files
 from pindel_tpu_torch.profiling import g_fallback
 from pindel_tpu_torch.testing.scenes import (BAM_SCENES, SCENE1,
-                                             SMALL_SCENES, bam_argv,
+                                             SMALL_SCENES, SUITE_SCENES,
+                                             bam_argv,
                                              build_bigdel, load_golden,
                                              reports, save_golden,
                                              write_scene)
@@ -166,7 +168,7 @@ def write_golden() -> None:
     for scene in SMALL_SCENES:
         with tempfile.TemporaryDirectory() as d:
             golden[scene] = run_numpy_reference(d, scene)[1]
-    for name, scene in BAM_SCENES.items():
+    for name, scene in {**BAM_SCENES, **SUITE_SCENES}.items():
         with tempfile.TemporaryDirectory() as d:
             golden[name] = run_reference(scene, scene.build(d),
                                          os.path.join(d, "numpy"), "numpy")
