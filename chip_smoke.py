@@ -109,7 +109,7 @@ failure exits non-zero:
       every rank that owned a window launched the kernel on its own card;
    b. scene 2 at ``--hosts 2`` (one window: rank 1 owns none): reports
       byte-identical to phase 6 and to the digests;
-   c. timed runs in turns, two of each (the lower median): scene 1 at
+   c. timed runs in turns, one of each: scene 1 at
       ``-w 1`` (six windows) at ``--hosts`` 1, 2 and 3 (files), scene 2 at
       ``-w 0.5`` (four windows) at ``--hosts`` 1 and 2 (store); the
       multi-process reports equal the one-process ones; the wall and rate of
@@ -145,21 +145,19 @@ failure exits non-zero:
    legacy rows and the launches; the largest shard call of each scene is
    held against the twin and timed beside the parent's kernel;
 11. the port's measurement tools, each in a fresh interpreter:
-   ``python -m pindel_tpu_torch.bench --runs 1`` (one timed run a scene,
-   not five: phases 5, 6, 12 and 13 run its scenes too),
+   ``python -m pindel_tpu_torch.bench --runs 1 --scenes scene1,scene2``
+   (one timed run a scene, not five, and not scenes 3 and 4: phases 5, 6,
+   12 and 13 run its scenes through its own run and gate),
    ``pindel_tpu_torch.tools.
    kernel_bench --per-round``, ``profile_bench --scene 1 --runs 2`` and
    ``multihost_bench --hosts 2``: each exits 0 with ``"correct": true``,
    its rates and times positive, the device-busy share in (0, 1], the
    bench's and the profile's search kernel launches equal to phases 5 and
    6, and each tool's build and first-use times logged; each tool's JSON line is
-   printed on a line of its own.  The bench also runs scene 3 (its
-   ``scene3_*`` keys: a positive rate, three windows, fallback at most
-   1%), and ``profile_bench --scene 3 --runs 1`` traces one run of it
-   (the busy share at that size); both tools' scene-3 launches must equal
-   phase 12's; the same for scene 4 (``scene4_*`` keys: five windows, K4
-   rows and reads sent to the oracle across chromosomes above 0;
-   ``profile_bench --scene 4 --runs 1``; launches equal to phase 13's);
+   printed on a line of its own.  ``profile_bench --scene 3 --runs 1``
+   and ``--scene 4 --runs 1`` trace one run of scenes 3 and 4 (the busy
+   share and the kernels' device time at that size); their launches must
+   equal phase 12's and 13's;
 12. scene 3 (testing/scenes.py:build_scene3: about 90,750 BAM read pairs
    with BreakDancer calls over 15 Mb, three 5 Mb windows, in the shape of
    the reference pindel's colousingbd15 run) once through the CLI on the
@@ -174,7 +172,11 @@ failure exits non-zero:
    the windows, K4 rows, legacy rows, shard kernel launches, search kernel
    launches and peak card memory printed, with each window's reads and
    times; then every K2/K3/K4 call of the run held against the plain
-   versions and the largest of each timed as in 6b;
+   versions and the largest of each timed as in 6b; the largest K4 call's
+   critical path (``kernel_bench.tail_row``: the reads' widths and seeds,
+   the widest 1%'s share of the operations, the widest read's floor, and
+   (a) the whole call, (b) its widest read, (c) the call without its
+   widest 1%, timed in turns);
 13. scene 4 (testing/scenes.py:build_scene4: about 79,000 BAM read pairs
    over four chromosomes of 13.5 Mb in one BAM, chrE without reads, with
    interchromosomal BreakDancer calls, in the shape of a whole-genome
@@ -194,7 +196,7 @@ failure exits non-zero:
    to the same digests; the standalone scan launched 0 times and
    ``pt_far_win`` once a K4 call; every K2/K3/K4 call of the recorded run
    held against the plain versions and the largest of each timed as in
-   6b.
+   6b, and the largest K4 call's critical path as in 12.
 
 The script imports torch, numpy and pindel_tpu_torch, and no jax.
 ``--profile-dir`` also traces one run of each full-size scene with
@@ -218,7 +220,8 @@ import numpy as np
 import torch
 
 from pindel_tpu_torch.tools.measure import (PEAK_BYTES, PEAK_INT32_OPS,
-                                            card_line, fused_bound,
+                                            card_line, device_ms,
+                                            fused_bound,
                                             region_log, row_classes,
                                             scan_bound)
 
@@ -229,7 +232,7 @@ PARENT_REV = "6efbcdb"
 PARENT_SOURCE = "pindel_tpu_torch/csrc/sharded_search.cu"
 MAX_FALLBACK = 0.01
 TIMED_RUNS = 3
-HOSTS_TIMED_RUNS = 2        # phase 8c: each rank count, in turns
+HOSTS_TIMED_RUNS = 1        # phase 8c: each rank count, in turns
 # phase 7: the device lists of the mesh runs (None: every visible card)
 MESH_LISTS = {"all": None, "cuda0x2": ["cuda:0", "cuda:0"]}
 # phase 8c: (label, scene, extra flags, --dist, the --hosts values in turn)
@@ -268,8 +271,10 @@ SCAN_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "bound_dense_ms")
 # phase 11: (name, module, arguments) of each tool, and each one's time
 # limit in seconds.  The bench repeats scenes that phases 5, 6, 12 and 13
-# run, so it takes one timed run of each here (its default is five)
-TOOLS = [("bench", "pindel_tpu_torch.bench", ["--runs", "1"]),
+# run, so it takes one timed run of each here (its default is five), and
+# leaves scenes 3 and 4 to phases 12 and 13 (its own run and gate there)
+TOOLS = [("bench", "pindel_tpu_torch.bench",
+          ["--runs", "1", "--scenes", "scene1,scene2"]),
          ("kernel_bench", "pindel_tpu_torch.tools.kernel_bench",
           ["--per-round"]),
          ("profile_bench", "pindel_tpu_torch.tools.profile_bench",
@@ -603,28 +608,6 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def device_ms(fn, reps: int) -> float:
-    """Device time per call of ``fn``: the calls are queued behind a spin of
-    the card (long enough to queue them all), so that the host's time to
-    launch them does not show between them, as it does for small calls."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.monotonic()
-    fn()
-    torch.cuda.synchronize()
-    host_s = time.monotonic() - t0
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    # about 1.5e9 cycles a second; queue reps calls with room to spare
-    torch.cuda._sleep(int(2 * reps * host_s * 1.5e9) + 1000)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
-
-
 def prefix_of(argv) -> str:
     """The output prefix (-o) of a CLI argument list."""
     return argv[argv.index("-o") + 1]
@@ -674,26 +657,14 @@ def run_tool(name: str, module: str, argv, card: str) -> dict:
 def check_tools(tools, launches1: int, launches2: int) -> None:
     """Phase 11's checks of the tools' lines: rates and times positive,
     the busy share in (0, 1], search kernel launches (the scan's and the
-    fused kernels') equal to phases 5 and 6, and scene 3's keys (its
-    launches are held to phase 12's there)."""
+    fused kernels') equal to phases 5 and 6 (the profiles of scenes 3 and
+    4 are held to phases 12 and 13 there)."""
     b = tools["bench"]
-    times = (b["runs"] + b["scene2_runs"] + b["scene3_runs"]
-             + b["scene4_runs"])
+    times = b["runs"] + b["scene2_runs"]
     if not (b["value"] > 0 and b["scene2_value"] > 0
-            and b["scene3_value"] > 0 and b["scene4_value"] > 0
             and all(t > 0 for t in times)):
-        fail(f"bench: rates {b['value']}, {b['scene2_value']}, "
-             f"{b['scene3_value']}, {b['scene4_value']}, walls {times}")
-    for key, windows in (("scene3", 3), ("scene4", 5)):
-        sk = {k: v for k, v in b.items() if k.startswith(key + "_")}
-        if not (sk[f"{key}_windows"] == windows and sk[f"{key}_pairs"] > 0
-                and sk[f"{key}_fallback_ratio"] <= MAX_FALLBACK
-                and sk[f"{key}_far_win_rows"] > 0
-                and sk[f"{key}_unit"] == "read pairs/s"):
-            fail(f"bench: {key} keys {sk}")
-    if not b["scene4_oracle_reads"] > 0:
-        fail(f"bench: scene 4 sent {b['scene4_oracle_reads']} reads to the "
-             "oracle across chromosomes")
+        fail(f"bench: rates {b['value']}, {b['scene2_value']}, walls "
+             f"{times}")
     if {k: b["launches"][k] for k in ("scene1", "scene2")} != {
             "scene1": launches1, "scene2": launches2}:
         fail(f"bench: search kernel launches {b['launches']}, phases 5 and 6 "
@@ -720,14 +691,9 @@ def check_tools(tools, launches1: int, launches2: int) -> None:
             and all(r["spawn_to_ready_s"] > 0 for r in workers)):
         fail(f"multihost_bench: {m}")
     log(f"phase 11: bench {b['value']:.1f} reads/s (scene 1), "
-        f"{b['scene2_value']:.1f} read pairs/s (scene 2), "
-        f"{b['scene3_value']:.1f} read pairs/s (scene 3, walls "
-        f"{b['scene3_runs']}), {b['scene4_value']:.1f} read pairs/s (scene "
-        f"4, walls {b['scene4_runs']}, spread {b['scene4_spread']:.3f}, "
-        f"oracle reads {b['scene4_oracle_reads']}), search kernel launches "
-        f"{b['launches']}, "
-        f"scenes 1 "
-        f"and 2 equal to phases 5 and 6; profile busy share "
+        f"{b['scene2_value']:.1f} read pairs/s (scene 2), search kernel "
+        f"launches {b['launches']}, equal to phases 5 and 6; profile busy "
+        f"share "
         f"{p['busy_share']:.4%} (scene 1), "
         f"{tools['profile_bench_scene3']['busy_share']:.4%} (scene 3), "
         f"{tools['profile_bench_scene4']['busy_share']:.4%} (scene 4); "
@@ -739,10 +705,7 @@ def tool_summary(tools) -> dict:
     b = tools["bench"]
     return dict(
         bench=dict(launches=b["launches"], value=b["value"],
-                   scene2_value=b["scene2_value"],
-                   scene3_value=b["scene3_value"],
-                   scene4_value=b["scene4_value"],
-                   scene4_oracle_reads=b["scene4_oracle_reads"]),
+                   scene2_value=b["scene2_value"]),
         kernel_bench={k: {x: c[x] for x in ("ms", "parent_ms", "k1_ms",
                                             "bound_ms", "earlier_bound_ms",
                                             "launches")}
@@ -780,6 +743,7 @@ def main() -> int:
                                       scan_cuda, sharded_search_cuda)
     from pindel_tpu_torch.ops import sharded_search as sss
     from pindel_tpu_torch.ops.scan import scan_rows_ref
+    from pindel_tpu_torch.tools import kernel_bench
     from pindel_tpu_torch.testing.fused_cases import CASES as FUSED_CASES
     from pindel_tpu_torch.testing.fused_cases import fused_case
     from pindel_tpu_torch.testing.lane_cases import (dead_level_case,
@@ -1202,6 +1166,23 @@ def main() -> int:
                     close=fused_cuda.LAUNCHES_BY_KERNEL["close"],
                     far=fused_cuda.LAUNCHES_BY_KERNEL["far"],
                     far_win=fused_cuda.LAUNCHES_BY_KERNEL["far_win"])
+
+    def largest_k4_tail(label, fused):
+        """``kernel_bench.tail_row`` of a run's largest K4 call: the reads'
+        widths and seeds, the widest 1%'s share, the widest read's floor,
+        and (a) the whole call, (b) its widest read, (c) the call without
+        its widest 1%, timed in turns."""
+        mine = [c for c in fused if c[0] == "_far_win_kernel"]
+        _n, chromcat, payload, maxmm, static = max(
+            mine, key=lambda c: c[2].shape[0])
+        with torch.inference_mode():
+            row = kernel_bench.tail_row(chromcat, payload, maxmm, static,
+                                        dev)
+        log(kernel_bench.tail_line(f"{label}'s largest K4 call", row, card))
+        if not row["equal_to_plain"]:
+            fail(f"{label}: K4 on its largest call's subsets disagrees with "
+                 "the plain version")
+        return row
 
     def check_path(label, k4_rows, k4_calls=None):
         """The launches of a CLI run since reset_counts(): K1's standalone
@@ -2439,13 +2420,12 @@ def main() -> int:
         # K2, K3 and K4 at every call of scene 3 against the plain
         # versions, the largest of each timed, as 6b
         whole["scene3"] = check_fused("scene 3", fused3)
+        k4_tail = {"scene3": largest_k4_tail("scene 3", fused3)}
         del fused3
-    for name in ("bench", "profile_bench_scene3"):
-        got = tools[name]["launches"]
-        got = got["scene3"] if name == "bench" else got
-        if got != c3["launches"]:
-            fail(f"{name}: scene 3 search kernel launches {got}, phase 12 "
-                 f"{c3['launches']}")
+    got = tools["profile_bench_scene3"]["launches"]
+    if got != c3["launches"]:
+        fail(f"profile_bench_scene3: scene 3 search kernel launches {got}, "
+             f"phase 12 {c3['launches']}")
     scene3 = dict({k: scan3[k] for k in SCAN_KEYS},
                   launches=c3["scan_launches"],
                   close_launches=c3["close_launches"],
@@ -2656,14 +2636,13 @@ def main() -> int:
         # d. K2, K3 and K4 at every call of the recorded run against the
         # plain versions, the largest of each timed, as 6b
         whole["scene4"] = check_fused("scene 4", fused4)
+        k4_tail["scene4"] = largest_k4_tail("scene 4", fused4)
         del fused4
         torch.cuda.empty_cache()
-    for name in ("bench", "profile_bench_scene4"):
-        got = tools[name]["launches"]
-        got = got["scene4"] if name == "bench" else got
-        if got != run4["counters"]["launches"]:
-            fail(f"{name}: scene 4 search kernel launches {got}, phase 13 "
-                 f"{run4['counters']['launches']}")
+    got = tools["profile_bench_scene4"]["launches"]
+    if got != run4["counters"]["launches"]:
+        fail(f"profile_bench_scene4: scene 4 search kernel launches {got}, "
+             f"phase 13 {run4['counters']['launches']}")
 
     loaded = reference_modules()
     if loaded:
@@ -2748,7 +2727,7 @@ def main() -> int:
                                ("_far_win_kernel", "far_win", 713)):
         rows = {scene: w[kname] for scene, w in whole.items() if kname in w}
         top = max(rows.values(), key=lambda r: r["rows"])
-        kernels.append(dict(
+        entry = dict(
             name=f"pt_{short}", route="cuda",
             source="pindel_tpu_torch/csrc/fused_search.cu",
             replaces=f"pindel_tpu/ops/engine_fused.py:{line}",
@@ -2759,7 +2738,11 @@ def main() -> int:
             plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
             bound_by=top["bound_by"], share=top["bound_ms"] / top["ms"],
             earlier_bound_ms=top["earlier_bound_ms"], library_ms=None,
-            calls=rows))
+            calls=rows)
+        if short == "far_win":
+            # the critical path of scenes 3 and 4's largest K4 calls
+            entry["tail"] = k4_tail
+        kernels.append(entry)
     mark("end")
     log(json.dumps({"kernels": kernels}))
     log(f"chip_smoke: total command time {time.monotonic() - t_start:.1f} s")

@@ -64,6 +64,14 @@
 //   - K4 skips nothing: every read's window is scanned on both lanes, and a
 //     read with no emission writes the merged rep_key at length 1 and
 //     uniform 1, as _emit_rules gives them.
+// * K4 keeps one block a read in caller order.  On the main path's calls
+//   (BreakDancer windows of one bucket, widths within about 4x of each
+//   other) the widest read does not set the call's time: timing the call
+//   without its widest 1% of reads saves nothing (tools/kernel_bench.py
+//   --far-win-tail, PERF.md).  A schedule of widest reads first, with wide
+//   reads cut across blocks and folded, pays only where a call mixes
+//   windows of very different widths (testing/fused_cases.py:
+//   far_win_skewed), which no workload of the repo produces.
 #include <algorithm>
 #include <atomic>
 #include <cstddef>

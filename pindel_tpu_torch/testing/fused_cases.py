@@ -54,7 +54,13 @@ lane 0 must win, or random, each with a random tail):
   chromosome (the forward tile past the layout's last row: the clamp);
 * ``far_win_wide32768``, ``far_win_wide98304``: the widest buckets, the
   second at lmax 512 (``w + lmax`` 98,816, next to the spacer's 100,000);
-* ``far_win_long512``: lmax 512 with reads of 250-500 bases.
+* ``far_win_long512``: lmax 512 with reads of 250-500 bases;
+* ``far_win_skewed``: many narrow windows (128-512 bases) and a few at the
+  bucket's full width (w 8192, lmax 128), the spread of widths inside one
+  call that sets K4's critical path; ``far_win_skewed32768``: the same
+  with one read at w 32768.  ``far_win_case(name, reads=n)`` scales their
+  narrow reads to ``n`` (the wide ones stay a hundredth of the call, at
+  least the case's own count), the size at which the card times them.
 """
 from __future__ import annotations
 
@@ -74,7 +80,8 @@ CLOSE_CASES = ("close", "close_r0", "close_full", "close_long",
 FAR_CASES = ("far_x0", "far_x1", "far_x2", "far_x3", "far_x4",
              "far_active", "far_edges", "far_long384", "far_long512")
 FAR_WIN_CASES = ("far_win", "far_win_edges", "far_win_wide32768",
-                 "far_win_wide98304", "far_win_long512")
+                 "far_win_wide98304", "far_win_long512", "far_win_skewed",
+                 "far_win_skewed32768")
 CASES = CLOSE_CASES + FAR_CASES + FAR_WIN_CASES
 MPM = 3
 # (lmax, reads, least and most read length) of the long-read cases; the
@@ -89,6 +96,9 @@ LONG = {"close_long": (256, 40, 130, 250),
 # have up to two substitutions, fewer than a whole read of 250 bases or more
 # needs to fail CheckMismatches, so they would hardly emit)
 SPLIT = ("close_long384", "close_long512", "far_long384", "far_long512")
+# the skewed K4 cases: (bucket, narrow reads, reads at the bucket's width)
+SKEWED = {"far_win_skewed": (8192, 60, 4),
+          "far_win_skewed32768": (32768, 30, 1)}
 
 
 def _chrom(rng, length: int) -> np.ndarray:
@@ -247,13 +257,19 @@ def far_case(name: str, seed: int = 0):
     return chrom, maxmm, payload, static
 
 
-def far_win_case(name: str, seed: int = 0):
+def far_win_case(name: str, seed: int = 0, reads: int = 0):
     rng = np.random.default_rng(seed)
     lmax, n, lo, hi = LONG.get(name, (128, 48, 40, 100))
     w = {"far_win_edges": 512, "far_win_wide32768": 32768,
          "far_win_wide98304": 98304}.get(name, 2048)
     if name.startswith("far_win_wide"):
         n = 8
+    wide = 0
+    if name in SKEWED:
+        w, narrow, wide = SKEWED[name]
+        narrow = reads or narrow
+        wide = max(wide, narrow // 100)
+        n = narrow + wide
     chrom = _chrom(rng, 3000 if name == "far_win_edges" else
                    max(20000, 2 * w))
     comp_size = chrom.shape[0]
@@ -264,7 +280,12 @@ def far_win_case(name: str, seed: int = 0):
     end = np.zeros(n, np.int64)
     for i in range(n):
         ql = int(qlen[i])
-        width = (w // 3, w, w + w // 2)[i % 3]
+        if name in SKEWED:
+            # the wide reads spread over the call, the rest narrow
+            width = w if i % (n // wide) == 0 and i // (n // wide) < wide \
+                else int(rng.integers(128, 513))
+        else:
+            width = (w // 3, w, w + w // 2)[i % 3]
         pos = SPACER + int(rng.integers(0, biol - ql))
         start[i] = pos - int(rng.integers(0, width))
         end[i] = start[i] + width
@@ -284,8 +305,9 @@ def far_win_case(name: str, seed: int = 0):
         k = int(rng.integers(ql // 3, ql - 7))
         q = np.concatenate([q[:k], rng.integers(0, 4, ql - k)]).astype(np.int8)
         codes[i, :ql] = _mutate(rng, q)
-    start[0] = SPACER - 7
-    end[-1] = comp_size - SPACER + 5
+    if name not in SKEWED:
+        start[0] = SPACER - 7
+        end[-1] = comp_size - SPACER + 5
     if name == "far_win_edges":
         for k in range(n):
             kind = k % 6
@@ -314,10 +336,11 @@ def far_win_case(name: str, seed: int = 0):
     return chrom, maxmm, _pack_payload(codes, meta), static
 
 
-def fused_case(name: str, seed: int = 0):
-    """(kernel name, chromosome, maxmm, payload, static) of case ``name``."""
+def fused_case(name: str, seed: int = 0, reads: int = 0):
+    """(kernel name, chromosome, maxmm, payload, static) of case ``name``
+    (``reads``: the skewed K4 cases' narrow reads, ``far_win_case``)."""
     if name in CLOSE_CASES:
         return ("_close_kernel", *close_case(name, seed))
     if name in FAR_WIN_CASES:
-        return ("_far_win_kernel", *far_win_case(name, seed))
+        return ("_far_win_kernel", *far_win_case(name, seed, reads))
     return ("_far_kernel", *far_case(name, seed))

@@ -27,6 +27,16 @@ code moves).
 ``--per-round`` adds K3 over each of its rounds alone (``far_round_SPAN``),
 which shows the cost of a round by its window.
 
+``--far-win-tail`` times K4's critical path instead: for the largest K4
+call of scenes 3 and 4 (each built in a temporary directory and run once
+through ``bench.run``, its K4 calls recorded), this tool's own K4 call
+(``far_window``) and the skewed cases of ``testing/fused_cases.py`` at
+4,000 narrow reads, ``measure.far_win_tail``'s figures (the reads' widths
+and seeded lanes, the bucket, the widest 1%'s share of the operations, the
+floor the widest read sets) and K4 timed on (a) the whole call, (b) its
+widest read alone and (c) the call without its widest 1% of reads, each
+with CUDA events and queued behind a spin of the card, in turns.
+
 The last line of standard output is one JSON object with, for each call,
 its ms, rows/s, parent and K1 ms, launches, bound, the earlier bound and
 the bound's share of its time, plus ``correct``, ``device`` (the card's
@@ -37,6 +47,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 
@@ -154,6 +165,131 @@ def log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
 
 
+TAIL_SCENES = ("scene3", "scene4")
+TAIL_SKEWED_READS = 4000
+
+
+def largest_far_win_calls(dev):
+    """The largest K4 call of each of TAIL_SCENES, recorded from one run of
+    the scene through ``bench.run`` on ``dev``: name -> (chromcat, payload,
+    maxmm, static)."""
+    import tempfile
+
+    from pindel_tpu_torch import bench
+    real = engine_fused._far_win_kernel
+    out = {}
+    for scene in TAIL_SCENES:
+        calls = []
+
+        def record(chromcat, payload, maxmm, **static):
+            calls.append((chromcat, payload.clone(), maxmm, static))
+            return real(chromcat, payload, maxmm, **static)
+
+        with tempfile.TemporaryDirectory(prefix=f"kernel_bench_{scene}_") \
+                as d:
+            t0 = time.monotonic()
+            spec = bench.SCENES[scene](d)
+            log(f"{scene}: {spec.n} read pairs, built in "
+                f"{time.monotonic() - t0:.1f} s")
+            engine_fused._far_win_kernel = record
+            try:
+                bench.run(spec, os.path.join(d, "run"), dev)
+            finally:
+                engine_fused._far_win_kernel = real
+        if not calls:
+            raise RuntimeError(f"{scene}: no K4 call")
+        out[f"{scene}_largest"] = max(calls, key=lambda c: c[1].shape[0])
+        log(f"{scene}: {len(calls)} K4 calls, the largest "
+            f"{out[f'{scene}_largest'][1].shape[0]} reads")
+    return out
+
+
+def in_turns(fns, timer):
+    """name -> the least of two turns of ``timer(fn)``, the calls timed in
+    the order given, then in the reverse order."""
+    names = list(fns)
+    times = {name: [] for name in names}
+    for name in names + names[::-1]:
+        times[name].append(timer(fns[name]))
+    return {name: min(t) for name, t in times.items()}
+
+
+def tail_row(cat, pay, mm, static, dev) -> dict:
+    """One K4 call: ``measure.far_win_tail``'s figures and the whole
+    wrapper's times (``_far_win_kernel``, the call as the backend makes it)
+    on (a) the whole call, (b) its widest read, (c) the call without its
+    widest 1%, in turns: with CUDA events around each call (``ms``, as the
+    other K4 timings are taken) and on a card also queued behind a spin of
+    the card (``device_ms``: the host's time to make the call hidden).
+    Each subset's output is held against the plain version."""
+    tail = measure.far_win_tail(cat, pay, mm, static)
+    keep = torch.ones(pay.shape[0], dtype=torch.bool, device=pay.device)
+    keep[tail["top_idx"]] = False
+    subsets = {"whole": pay,
+               "widest": pay[tail["widest"]:tail["widest"] + 1],
+               "rest": pay[keep].contiguous()}
+    row = {k: v for k, v in tail.items() if k != "top_idx"}
+    fns = {sub: (lambda p=p: engine_fused._far_win_kernel(cat, p, mm,
+                                                          **static))
+           for sub, p in subsets.items()}
+    correct = True
+    for sub, p in subsets.items():
+        want = with_plain_scan(
+            lambda p=p: engine_fused._far_win_kernel_ref(cat, p, mm,
+                                                         **static))
+        same = torch.equal(fns[sub](), want)
+        correct &= same
+        row.update({f"{sub}_rows": int(p.shape[0]),
+                    f"{sub}_equal_to_plain": same})
+    timers = {"ms": lambda fn: measure.min_ms(fn, dev)}
+    if dev.type == "cuda":
+        timers["device_ms"] = lambda fn: measure.device_ms(fn, 10)
+    for key, timer in timers.items():
+        row.update({f"{sub}_{key}": t
+                    for sub, t in in_turns(fns, timer).items()})
+    b_ = measure.fused_bound("_far_win_kernel", cat, pay, mm, static)
+    row.update(bound_ms=b_["bound_ms"], bound_by=b_["bound_by"],
+               bound_share=b_["bound_ms"] / row["whole_ms"],
+               equal_to_plain=correct)
+    return row
+
+
+def tail_line(name: str, row: dict, card: str) -> str:
+    """``tail_row``'s figures on one line."""
+    times = "; ".join(
+        f"{k} (a) {row['whole_' + k]:.4f} (b) {row['widest_' + k]:.4f} "
+        f"(c) {row['rest_' + k]:.4f}"
+        for k in ("ms", "device_ms") if "whole_" + k in row)
+    return (f"{name}: {row['reads']} reads, w={row['w']}, widths "
+            f"{row['width']}, seeded lanes a lane {row['seeds_per_lane']}; "
+            f"widest read {row['widest_share']:.2%} of the operations, the "
+            f"widest {row['top_reads']} {row['top_share']:.2%}; floor of the "
+            f"widest read at one warp a lane {row['floor_ms']:.4f} ms; "
+            f"{times} ms; bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_share']:.1%} of (a)); equal to the plain "
+            f"version: {row['equal_to_plain']}  [{card}]")
+
+
+def far_win_tail(b: int, dev) -> dict:
+    """``--far-win-tail``: ``tail_row`` of the largest K4 call of
+    TAIL_SCENES, of this tool's K4 call and of the skewed cases."""
+    from pindel_tpu_torch.testing.fused_cases import fused_case
+    calls = largest_far_win_calls(dev)
+    calls["far_window"] = call_args(*inputs(b), dev)["far_window"]
+    for case in ("far_win_skewed", "far_win_skewed32768"):
+        _n, chrom_c, maxmm_c, payload_c, st = fused_case(
+            case, reads=TAIL_SKEWED_READS)
+        calls[case] = (_chrom_cat(torch.from_numpy(chrom_c).to(dev)),
+                       torch.from_numpy(payload_c).to(dev),
+                       torch.from_numpy(maxmm_c.copy()).to(dev), st)
+    result = {}
+    for name, (cat, pay, mm, static) in calls.items():
+        result[name] = tail_row(cat, pay, mm, static, dev)
+        log(tail_line(name, result[name], measure.device_line(dev)))
+    return dict(calls=result,
+                correct=all(r["equal_to_plain"] for r in result.values()))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m pindel_tpu_torch.tools.kernel_bench",
@@ -164,6 +300,8 @@ def main(argv=None) -> int:
                     help="cuda (default; raises without a card) or cpu")
     ap.add_argument("--per-round", action="store_true",
                     help="also time K3 over each of its rounds alone")
+    ap.add_argument("--far-win-tail", action="store_true",
+                    help="time K4's critical path (see above) instead")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
     card = measure.device_line(dev)
@@ -174,6 +312,14 @@ def main(argv=None) -> int:
         fused_cuda._lib()
         build_s = time.monotonic() - t0
     log(f"device: {card}; kernels built or loaded in {build_s:.3f} s")
+
+    if args.far_win_tail:
+        with torch.inference_mode():
+            tail = far_win_tail(args.b, dev)
+        print(json.dumps(dict(tool="kernel_bench", mode="far_win_tail",
+                              b=args.b, device=card, build_s=build_s,
+                              **tail)), flush=True)
+        return 0 if tail["correct"] else 1
 
     host = inputs(args.b)
     result = {}

@@ -40,6 +40,10 @@ PEAK_INT32_OPS = 67e12 / 4
 PASS1_OPS_PER_WORD = 7
 PASS2_OPS = 8
 EARLIER_PASS1_OPS = 3
+# one SM sub-partition's share of PEAK_INT32_OPS (132 SMs of four): the
+# most int32 operations a second that one warp alone can start
+SUBPARTITIONS = 132 * 4
+WARP_INT32_OPS = PEAK_INT32_OPS / SUBPARTITIONS
 
 
 def card_line() -> str:
@@ -84,6 +88,28 @@ def min_ms(fn, dev: torch.device, n: int = 3) -> float:
     return min(times)
 
 
+def device_ms(fn, reps: int) -> float:
+    """Device time per call of ``fn``: the calls are queued behind a spin of
+    the card (long enough to queue them all), so that the host's time to
+    launch them does not show between them, as it does for small calls."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    fn()
+    torch.cuda.synchronize()
+    host_s = time.monotonic() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    # about 1.5e9 cycles a second; queue reps calls with room to spare
+    torch.cuda._sleep(int(2 * reps * host_s * 1.5e9) + 1000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
 def row_classes(args, kw):
     """Seeds per row and the rows the kernel walks on its sparse branch
     (two or more seeds; ops/scan.py:sparse_rows)."""
@@ -94,17 +120,23 @@ def row_classes(args, kw):
                               lmax=kw["lmax"], lsteps=kw["lsteps"])
 
 
-def scan_ops(args, kw, seeds, sparse) -> float:
-    """The int32 operations one scan call's rows need: pass 1 over each
-    read's counted steps, pass 2 over ``lsteps``, on the seeded lanes of a
-    sparse row and on every lane of [0, WE) of the others."""
+def scan_row_ops(args, kw, seeds, sparse) -> torch.Tensor:
+    """Per row ([R] float64), the int32 operations one scan call's rows
+    need: pass 1 over each read's counted steps, pass 2 over ``lsteps``, on
+    the seeded lanes of a sparse row and on every lane of [0, WE) of the
+    others."""
     tiles, qlen = args[0], args[3]
     lsteps = kw["lsteps"] or kw["lmax"]
     we = tiles.shape[1] - kw["lmax"]
     steps1 = (torch.clamp(qlen.double(), max=lsteps) - 1).clamp(min=0)
     per_lane = steps1 * PASS1_OPS_PER_WORD / 4 + lsteps * PASS2_OPS
     lanes = torch.where(sparse, seeds, we)
-    return float((lanes * per_lane).sum())
+    return lanes * per_lane
+
+
+def scan_ops(args, kw, seeds, sparse) -> float:
+    """``scan_row_ops`` summed over the call's rows."""
+    return float(scan_row_ops(args, kw, seeds, sparse).sum())
 
 
 def scan_bound(args, kw, seeds, sparse):
@@ -235,6 +267,53 @@ def fused_bound(name, chromcat, payload, maxmm, static):
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
                 rows_scanned=scanned, rows_all=total,
                 composition_bound_ms=composition_bound(payload, out, scans))
+
+
+def _quartiles(x: torch.Tensor) -> dict:
+    """min, median, p99 and max of a 1-D tensor (the lower value at a
+    rank between two)."""
+    v = x.double().sort().values
+    n = v.numel()
+    return dict(min=float(v[0]), median=float(v[(n - 1) // 2]),
+                p99=float(v[int(0.99 * (n - 1))]), max=float(v[-1]))
+
+
+def far_win_tail(chromcat, payload, maxmm, static):
+    """The critical path of a K4 call (``_far_win_kernel``) beside its
+    bound: per read the int32 operations of its two rows as
+    ``fused_bound`` counts them (``scan_row_ops``), and from them the
+    widest read (the most operations), its share of the call's
+    operations, the widest 1% of reads (at least one) and their share, and
+    the floor each sets: the widest read's busier lane at one SM
+    sub-partition's int32 rate (``WARP_INT32_OPS``), the time one warp a
+    lane takes at best when the read is walked whole, as a kernel of one
+    block a read walks it.  Also the distribution (min, median, p99, max) of the reads' own widths
+    ``min(max(end - start, 0), w)`` and of their seeded lanes a lane, and
+    the bucket ``w``.  ``fused_bound`` stays as it is."""
+    _out, scans, _rules = composition_scans("_far_win_kernel", chromcat,
+                                            payload, maxmm, static)
+    (args, kw), = scans
+    seeds, sparse = row_classes(args, kw)
+    row_ops = scan_row_ops(args, kw, seeds, sparse).view(-1, 2)
+    read_ops = row_ops.sum(dim=1)
+    lane_ops = row_ops.max(dim=1).values
+    total = float(read_ops.sum())
+    b = read_ops.shape[0]
+    top = max(1, -(-b // 100))
+    order = torch.argsort(read_ops, descending=True, stable=True)
+    widest = int(order[0])
+    return dict(
+        reads=b, w=kw["w"], lmax=kw["lmax"], lsteps=kw["lsteps"],
+        width=_quartiles(args[2].view(-1, 2)[:, 0]),
+        seeds_per_lane=_quartiles(seeds),
+        sparse_rows=int(sparse.sum()), rows=int(sparse.numel()),
+        total_ops=total, widest=widest, widest_ops=float(read_ops[widest]),
+        widest_share=float(read_ops[widest]) / total if total else 0.0,
+        top_reads=top, top_idx=order[:top].tolist(),
+        top_share=(float(read_ops[order[:top]].sum()) / total
+                   if total else 0.0),
+        floor_ms=float(lane_ops.max()) / WARP_INT32_OPS * 1e3,
+        mean_read_ms=total / b / 2 / WARP_INT32_OPS * 1e3)
 
 
 def device_busy(prof, wall_s: float):
