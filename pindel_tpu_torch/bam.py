@@ -15,6 +15,7 @@ import ctypes
 import dataclasses
 from typing import List, Optional, Tuple
 
+from pindel_tpu_torch.profiling import g_timer
 from pindel_tpu_torch.reads import SplitRead
 
 
@@ -168,9 +169,16 @@ class BamReader:
         if chrom_name not in self.ref_names:
             return [], []
         tid = self.ref_names.index(chrom_name)
-        n = self._lib.ptbam_collect_sr(
-            self._h, tid, start, end, min_anchor_quality, nm,
-            max_mismatch_rate, biol_size)
+        with g_timer.phase("intake: bam decode"):
+            n = self._lib.ptbam_collect_sr(
+                self._h, tid, start, end, min_anchor_quality, nm,
+                max_mismatch_rate, biol_size)
+        with g_timer.phase("intake: bam objects"):
+            return self._sr_objects(n, chrom_name, insert_size, tag)
+
+    def _sr_objects(self, n: int, chrom_name: str, insert_size: int,
+                    tag: str) -> Tuple[List[SplitRead], List[RefRead]]:
+        """The split reads and reference reads of the last collect_sr."""
         reads: List[SplitRead] = []
         if n:
             names = ctypes.string_at(

@@ -37,7 +37,6 @@ the same device.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -47,6 +46,7 @@ from pindel_tpu_torch import dna
 from pindel_tpu_torch.config import MAX_READ_LENGTH
 from pindel_tpu_torch.genome import SPACER
 from pindel_tpu_torch.profiling import g_fallback, g_timer
+from pindel_tpu_torch.ops import fused_cuda
 from pindel_tpu_torch.ops.engine_jax import TorchLaneBackend
 from pindel_tpu_torch.ops.scan import dead_level, key_shift, scan_rows
 
@@ -669,10 +669,10 @@ def device_state_from_numpy(chrom_codes: np.ndarray, maxmm: np.ndarray,
     copy goes up, the aligned layout is built on the device."""
     device = torch.device(device)
     # a writable contiguous int8 copy only where the input is not one
-    chrom = torch.from_numpy(np.require(chrom_codes, np.int8, ["C", "W"])) \
-        .to(device)
-    maxmm_t = torch.from_numpy(np.require(maxmm, np.int32, ["C", "W"])) \
-        .to(device)
+    chrom = torch.from_numpy(np.require(chrom_codes, np.int8, ["C", "W"]))
+    maxmm_t = torch.from_numpy(np.require(maxmm, np.int32, ["C", "W"]))
+    fused_cuda.count_upload(chrom.nbytes + maxmm_t.nbytes)
+    chrom, maxmm_t = chrom.to(device), maxmm_t.to(device)
     return DeviceState(chrom, _chrom_cat(chrom), maxmm_t)
 
 
@@ -775,86 +775,86 @@ class TorchFusedBackend:
                 out.extend(self.run(batch_lanes[lo:hi], bp_start,
                                     max_snps[lo:hi], tsec_minus[lo:hi]))
             return out
-        t0 = time.monotonic()
-        b = self._rows(n)
-        qlen = np.zeros(b, np.int32)
-        qlen[:n] = [lanes[0].query.shape[0] for lanes in batch_lanes]
-        qlen[n:] = 1
-        lmax = _round_up(max(int(qlen.max()), 8), 128)
-        codes = np.full((b, lmax), dna.N, np.int8)
-        start = np.zeros(b, np.int64)
-        end = np.zeros(b, np.int64)
-        for i, lanes in enumerate(batch_lanes):
-            q = lanes[0].query
-            codes[i, :q.shape[0]] = q
-            start[i] = lanes[0].start
-            end[i] = lanes[0].end
-        w = self._w_bucket(max(int((end - start).max()), 1))
-        if w + lmax > SPACER:
+        with g_timer.phase("fused: pack bdwin"):
+            b = self._rows(n)
+            qlen = np.zeros(b, np.int32)
+            qlen[:n] = [lanes[0].query.shape[0] for lanes in batch_lanes]
+            qlen[n:] = 1
+            lmax = _round_up(max(int(qlen.max()), 8), 128)
+            codes = np.full((b, lmax), dna.N, np.int8)
+            start = np.zeros(b, np.int64)
+            end = np.zeros(b, np.int64)
+            for i, lanes in enumerate(batch_lanes):
+                q = lanes[0].query
+                codes[i, :q.shape[0]] = q
+                start[i] = lanes[0].start
+                end[i] = lanes[0].end
+            w = self._w_bucket(max(int((end - start).max()), 1))
+            fits = w + lmax <= SPACER
+            if fits:
+                ms = np.zeros(b, np.int32)
+                ms[:n] = max_snps
+                tm = np.zeros(b, np.int32)
+                tm[:n] = tsec_minus
+                thr = np.zeros(b, np.int32)
+                thr[:n] = np.ceil(np.float32(
+                    qlen[:n].astype(np.float64) * np.float64(self.rate))
+                ).astype(np.int32)
+                meta = np.zeros((b, FW_WORDS), np.int32)
+                meta[:, 0] = start
+                meta[:, 1] = end
+                meta[:, 2] = qlen
+                meta[:, 3] = (ms | (tm.astype(np.int64) << 8)
+                              | (thr.astype(np.int64) << 16))
+                payload = _pack_payload(codes, meta)
+                lsteps = _round_up(int(qlen[:n].max()), 16)
+        if not fits:
             return self._legacy.run(batch_lanes, bp_start, max_snps,
                                     tsec_minus)
-        ms = np.zeros(b, np.int32)
-        ms[:n] = max_snps
-        tm = np.zeros(b, np.int32)
-        tm[:n] = tsec_minus
-        thr = np.zeros(b, np.int32)
-        thr[:n] = np.ceil(np.float32(
-            qlen[:n].astype(np.float64) * np.float64(self.rate))
-        ).astype(np.int32)
-        meta = np.zeros((b, FW_WORDS), np.int32)
-        meta[:, 0] = start
-        meta[:, 1] = end
-        meta[:, 2] = qlen
-        meta[:, 3] = (ms | (tm.astype(np.int64) << 8)
-                      | (thr.astype(np.int64) << 16))
-        payload = _pack_payload(codes, meta)
-        lsteps = _round_up(int(qlen[:n].max()), 16)
-        t1 = time.monotonic()
-        g_timer.add("fused: pack bdwin", t1 - t0)
-        outarr = self._far_win_call(payload, w=w, lmax=lmax, mpm=self.mpm,
-                                    bp_start=bp_start, lsteps=lsteps).get()
+        with g_timer.phase("fused: bdwin wait"):
+            outarr = self._far_win_call(
+                payload, w=w, lmax=lmax, mpm=self.mpm, bp_start=bp_start,
+                lsteps=lsteps).get()
         FAR_WIN_ROWS += n
-        t2 = time.monotonic()
-        g_timer.add(f"fused: bdwin wait w={w} b={b}", t2 - t1)
-        nw = lmax // 32
-        emit = unpack_words(outarr[:n, :nw], lmax)
-        rep = outarr[:n, nw].astype(np.int64)
-        flags = outarr[:n, nw + 1]
-        any_emit = (flags & 1).astype(bool)
-        uni = ((flags >> 1) & 1).astype(bool)
-        lane = rep // w
-        w_off = rep % w
-        ss = np.where(lane == 1, end[:n] - (w + lmax), start[:n])
-        q_dev = np.where((lane == 1)[:, None], dna.RC[codes[:n]],
-                         codes[:n]).astype(np.int8)
-        chains = decode_chains(self.chrom_codes, emit, w_off, ss,
-                               lane == 1, q_dev, qlen[:n],
-                               np.full(n, w, np.int64), lmax)
-        from pindel_tpu_torch.reads import AnchorSet
-        from pindel_tpu_torch.search import _anchorset_from_chain
-        results: List = [None] * n
-        legacy_rows: List[int] = []
-        for i in range(n):
-            ch = chains[i]
-            if not any_emit[i] or ch is None:
-                results[i] = (AnchorSet.empty(), 0)
-            elif not uni[i]:
-                # non-uniform chain: exact per-length reconstruction via
-                # the legacy per-lane path
-                legacy_rows.append(i)
-            else:
-                lm = bool(lane[i])
-                results[i] = (_anchorset_from_chain(
-                    ch, lm, lm, self.chrom_name), ch.full_mm)
-        g_fallback.add(n, len(legacy_rows))
-        if legacy_rows:
-            sub = self._legacy.run(
-                [batch_lanes[i] for i in legacy_rows], bp_start,
-                [max_snps[i] for i in legacy_rows],
-                [tsec_minus[i] for i in legacy_rows])
-            for i, res in zip(legacy_rows, sub):
-                results[i] = res
-        g_timer.add("fused: decode bdwin", time.monotonic() - t2)
+        with g_timer.phase("fused: decode bdwin"):
+            nw = lmax // 32
+            emit = unpack_words(outarr[:n, :nw], lmax)
+            rep = outarr[:n, nw].astype(np.int64)
+            flags = outarr[:n, nw + 1]
+            any_emit = (flags & 1).astype(bool)
+            uni = ((flags >> 1) & 1).astype(bool)
+            lane = rep // w
+            w_off = rep % w
+            ss = np.where(lane == 1, end[:n] - (w + lmax), start[:n])
+            q_dev = np.where((lane == 1)[:, None], dna.RC[codes[:n]],
+                             codes[:n]).astype(np.int8)
+            chains = decode_chains(self.chrom_codes, emit, w_off, ss,
+                                   lane == 1, q_dev, qlen[:n],
+                                   np.full(n, w, np.int64), lmax)
+            from pindel_tpu_torch.reads import AnchorSet
+            from pindel_tpu_torch.search import _anchorset_from_chain
+            results: List = [None] * n
+            legacy_rows: List[int] = []
+            for i in range(n):
+                ch = chains[i]
+                if not any_emit[i] or ch is None:
+                    results[i] = (AnchorSet.empty(), 0)
+                elif not uni[i]:
+                    # non-uniform chain: exact per-length reconstruction via
+                    # the legacy per-lane path
+                    legacy_rows.append(i)
+                else:
+                    lm = bool(lane[i])
+                    results[i] = (_anchorset_from_chain(
+                        ch, lm, lm, self.chrom_name), ch.full_mm)
+            g_fallback.add(n, len(legacy_rows))
+            if legacy_rows:
+                sub = self._legacy.run(
+                    [batch_lanes[i] for i in legacy_rows], bp_start,
+                    [max_snps[i] for i in legacy_rows],
+                    [tsec_minus[i] for i in legacy_rows])
+                for i, res in zip(legacy_rows, sub):
+                    results[i] = res
         return results
 
     # kernel dispatch points (overridden by the mesh backend): each takes
@@ -870,6 +870,7 @@ class TorchFusedBackend:
         return self._launch(_far_win_kernel, payload, static)
 
     def _launch(self, kernel, payload: np.ndarray, static) -> _Download:
+        fused_cuda.count_upload(payload.nbytes)
         with torch.inference_mode():
             out = kernel(self.state.chromcat,
                          torch.from_numpy(payload).to(self.device),
@@ -956,19 +957,23 @@ class TorchFusedBackend:
         for st in pending:
             self._close_finish(st, results)
         for st in pending:
-            fut = st.pop("fut", None)
-            if fut is not None:
-                fut.result()
+            self._join_decode(st)
         return results
+
+    @staticmethod
+    def _join_decode(st) -> None:
+        """Wait for a chunk's decode on the -T pool, where it went."""
+        fut = st.pop("fut", None)
+        if fut is not None:
+            with g_timer.phase("fused: close decode join"):
+                fut.result()
 
     def close_ends_decode_stream(self, reads, token):
         """Yield (lo, hi, results) per chunk as its device results land."""
         results, pending = token
         for st in pending:
             self._close_finish(st, results)
-            fut = st.pop("fut", None)
-            if fut is not None:
-                fut.result()
+            self._join_decode(st)
             yield st["base"], st["base"] + st["nb"], results
 
     def _close_dispatch(self, reads, base: int, results, bp_start: int):
@@ -1019,49 +1024,48 @@ class TorchFusedBackend:
 
     def _close_dispatch_core(self, nb, b, lmax, qlen, minus, pos, isz,
                              base, results, bp_start, pack_fn, codes_fn):
-        t0 = time.monotonic()
-        ms, tm, thr = self._budgets(qlen, nb)
-        # attempt windows (close_end_lane geometry, pindel.cpp:2271-2316)
-        win = np.zeros((2, b, 2), np.int64)
-        for k in (0, 1):
-            plus_start = pos + SPACER - k * isz
-            plus_end = plus_start + (2 * k + 1) * isz
-            minus_end = pos + SPACER + k * isz
-            minus_start = minus_end - (2 * k + 1) * isz
-            win[k, :, 0] = np.where(minus, minus_start, plus_start)
-            win[k, :, 1] = np.where(minus, minus_end, plus_end)
-        w0 = self._w_bucket(max(int((win[0, :, 1] - win[0, :, 0]).max()), 1))
-        w1 = self._w_bucket(max(int((win[1, :, 1] - win[1, :, 0]).max()), 1))
-        qlen[nb:] = 1                      # padding rows: never active
-        st = dict(dev=None, base=base, nb=nb, b=b, qlen=qlen,
-                  codes_fn=codes_fn, minus=minus, win=win, w0=w0,
-                  w1=w1, lmax=lmax, bp_start=bp_start,
-                  lsteps=_round_up(int(qlen[:nb].max()), 16))
-        if w0 + lmax > SPACER:
-            # the range-0 window bucket outgrows the spacer padding the
-            # tile gather relies on: the whole chunk takes the exact
-            # NumPy oracle
-            for i in range(nb):
-                results[base + i] = (None, -1, True)
-            return st
-        # range-1 windows can outgrow the spacer even when range 0 fits
-        # (3x wider): skip range 1 on device, fall back per failure
-        with_r1 = (w1 + lmax) <= SPACER
-        st["with_r1"] = with_r1
-        if int(isz.max()) > 0x1ffff or int(qlen.max()) > 0x3ff \
-                or int(thr.max()) > 0x3ff:
-            # bit-packed meta cannot hold this chunk (jumbo inserts)
-            for i in range(nb):
-                results[base + i] = (None, -1, True)
-            return st
-        meta = _close_meta(pos, isz, qlen, ms, tm, thr, minus)
-        payload = pack_fn(meta)
-        t1 = time.monotonic()
-        g_timer.add("fused: pack close", t1 - t0)
-        st["dev"] = self._close_call(
-            payload, w0=w0, w1=w1, lmax=lmax, mpm=self.mpm,
-            bp_start=bp_start, lsteps=st["lsteps"], with_r1=with_r1)
-        g_timer.add("fused: dispatch close", time.monotonic() - t1)
+        with g_timer.phase("fused: pack close"):
+            ms, tm, thr = self._budgets(qlen, nb)
+            # attempt windows (close_end_lane geometry, pindel.cpp:2271-2316)
+            win = np.zeros((2, b, 2), np.int64)
+            for k in (0, 1):
+                plus_start = pos + SPACER - k * isz
+                plus_end = plus_start + (2 * k + 1) * isz
+                minus_end = pos + SPACER + k * isz
+                minus_start = minus_end - (2 * k + 1) * isz
+                win[k, :, 0] = np.where(minus, minus_start, plus_start)
+                win[k, :, 1] = np.where(minus, minus_end, plus_end)
+            w0, w1 = (self._w_bucket(max(int((win[k, :, 1]
+                                              - win[k, :, 0]).max()), 1))
+                      for k in (0, 1))
+            qlen[nb:] = 1                      # padding rows: never active
+            st = dict(dev=None, base=base, nb=nb, b=b, qlen=qlen,
+                      codes_fn=codes_fn, minus=minus, win=win, w0=w0,
+                      w1=w1, lmax=lmax, bp_start=bp_start,
+                      lsteps=_round_up(int(qlen[:nb].max()), 16))
+            if w0 + lmax > SPACER:
+                # the range-0 window bucket outgrows the spacer padding the
+                # tile gather relies on: the whole chunk takes the exact
+                # NumPy oracle
+                for i in range(nb):
+                    results[base + i] = (None, -1, True)
+                return st
+            # range-1 windows can outgrow the spacer even when range 0 fits
+            # (3x wider): skip range 1 on device, fall back per failure
+            with_r1 = (w1 + lmax) <= SPACER
+            st["with_r1"] = with_r1
+            if int(isz.max()) > 0x1ffff or int(qlen.max()) > 0x3ff \
+                    or int(thr.max()) > 0x3ff:
+                # bit-packed meta cannot hold this chunk (jumbo inserts)
+                for i in range(nb):
+                    results[base + i] = (None, -1, True)
+                return st
+            meta = _close_meta(pos, isz, qlen, ms, tm, thr, minus)
+            payload = pack_fn(meta)
+        with g_timer.phase("fused: dispatch close"):
+            st["dev"] = self._close_call(
+                payload, w0=w0, w1=w1, lmax=lmax, mpm=self.mpm,
+                bp_start=bp_start, lsteps=st["lsteps"], with_r1=with_r1)
         return st
 
     def _close_finish(self, st, results):
@@ -1070,13 +1074,9 @@ class TorchFusedBackend:
         if st["dev"] is None:
             return
         base, nb, lmax = st["base"], st["nb"], st["lmax"]
-        t1 = time.monotonic()
-        out = st["dev"].get()
+        with g_timer.phase("fused: close wait"):
+            out = st["dev"].get()
         st["dev"] = None
-        t2 = time.monotonic()
-        g_timer.add(
-            f"fused: close wait w={st['w0']}/{st['w1']} b={st['b']}",
-            t2 - t1)
         nw = lmax // 32
         emit = unpack_words(out[:nb, :nw], lmax)
         rep = out[:nb, nw].astype(np.int64)
@@ -1090,25 +1090,24 @@ class TorchFusedBackend:
                 results[base + i] = (None, -1, True)
 
         def _decode():
-            t3 = time.monotonic()
-            codes = st["codes_fn"]()
-            r0 = np.flatnonzero(winner < 2)
-            if r0.size:
-                self._decode_close_rows(
-                    st, results, r0, emit[r0], rep[r0], winner[r0],
-                    uniform[r0], st["qlen"], codes, st["minus"],
-                    st["win"][0], st["w0"], flip=(winner[r0] == 1))
-            r1 = np.flatnonzero((winner == 2) | (winner == 3))
-            if r1.size:
-                self._decode_close_rows(
-                    st, results, r1, emit[r1], rep[r1], winner[r1],
-                    uniform[r1], st["qlen"], codes, st["minus"],
-                    st["win"][1], st["w1"], flip=(winner[r1] == 2))
-            g_timer.add("fused: decode close", time.monotonic() - t3)
+            with g_timer.phase("fused: decode close"):
+                codes = st["codes_fn"]()
+                r0 = np.flatnonzero(winner < 2)
+                if r0.size:
+                    self._decode_close_rows(
+                        st, results, r0, emit[r0], rep[r0], winner[r0],
+                        uniform[r0], st["qlen"], codes, st["minus"],
+                        st["win"][0], st["w0"], flip=(winner[r0] == 1))
+                r1 = np.flatnonzero((winner == 2) | (winner == 3))
+                if r1.size:
+                    self._decode_close_rows(
+                        st, results, r1, emit[r1], rep[r1], winner[r1],
+                        uniform[r1], st["qlen"], codes, st["minus"],
+                        st["win"][1], st["w1"], flip=(winner[r1] == 2))
 
         pool = self._decode_pool()
         if pool is not None:
-            st["fut"] = pool.submit(_decode)
+            st["fut"] = pool.submit(g_timer.bind(_decode))
         else:
             _decode()
 
@@ -1186,61 +1185,62 @@ class TorchFusedBackend:
 
     def _far_dispatch(self, reads, base: int, spans, comp_size,
                       bp_start: int):
-        t0 = time.monotonic()
-        nb = len(reads)
-        b = self._rows(nb)
-        nr = len(spans)
-        blob, offs = _seq_blob(reads, nb)
-        qlen = np.zeros(b, np.int32)
-        qlen[:nb] = np.diff(offs)
-        lmax = _round_up(max(int(qlen.max()), 8), 128)
-        close_max = np.zeros(b, np.int32)
-        init_max = np.zeros(b, np.int32)
-        center = np.zeros(b, np.int64)
-        for i, r in enumerate(reads):
-            close_max[i] = r.max_len_close()
-            init_max[i] = r.max_len_far()
-            center[i] = r.last_abs_loc_close_end()
-        qlen[nb:] = 1                        # padding rows: never active
-        close_max[nb:] = 1
-        wins = np.zeros((b, nr, 2), np.int64)
-        ws = []
-        for k, span in enumerate(spans):
-            # window geometry: search.py search_far_ends
-            start = np.where(center > span + SPACER, center - span, SPACER)
-            end = np.minimum(center + span, comp_size - SPACER)
-            wins[:, k, 0] = start
-            wins[:, k, 1] = np.maximum(end, start)
-            ws.append(self._w_bucket(2 * span))
-        assert max(ws) + lmax <= SPACER, (ws, lmax)
-        ms, tm, thr = self._budgets(qlen, nb)
-        assert int(qlen.max()) <= 0x3ff and int(close_max.max()) <= 0x3ff \
-            and int(init_max.max()) <= 0x3ff and int(thr.max()) <= 0x3ff, \
-            "read length exceeds far-meta bit packing"
-        meta = _far_meta(center, qlen, close_max, init_max, ms, tm, thr,
-                         comp_size)
-        payload = _native_pack_far(blob, offs, nb, b, lmax, meta)
-
-        t1 = time.monotonic()
-        g_timer.add("fused: pack far", t1 - t0)
-        dev = self._far_call(
-            payload, spans=tuple(spans), ws=tuple(ws), lmax=lmax,
-            mpm=self.mpm, bp_start=bp_start,
-            lsteps=_round_up(int(qlen[:nb].max()), 16))
-        g_timer.add("fused: dispatch far", time.monotonic() - t1)
+        with g_timer.phase("fused: pack far"):
+            nb = len(reads)
+            b = self._rows(nb)
+            nr = len(spans)
+            blob, offs = _seq_blob(reads, nb)
+            qlen = np.zeros(b, np.int32)
+            qlen[:nb] = np.diff(offs)
+            lmax = _round_up(max(int(qlen.max()), 8), 128)
+            close_max = np.zeros(b, np.int32)
+            init_max = np.zeros(b, np.int32)
+            center = np.zeros(b, np.int64)
+            for i, r in enumerate(reads):
+                close_max[i] = r.max_len_close()
+                init_max[i] = r.max_len_far()
+                center[i] = r.last_abs_loc_close_end()
+            qlen[nb:] = 1                        # padding rows: never active
+            close_max[nb:] = 1
+            wins = np.zeros((b, nr, 2), np.int64)
+            ws = []
+            for k, span in enumerate(spans):
+                # window geometry: search.py search_far_ends
+                start = np.where(center > span + SPACER, center - span,
+                                 SPACER)
+                end = np.minimum(center + span, comp_size - SPACER)
+                wins[:, k, 0] = start
+                wins[:, k, 1] = np.maximum(end, start)
+                ws.append(self._w_bucket(2 * span))
+            assert max(ws) + lmax <= SPACER, (ws, lmax)
+            ms, tm, thr = self._budgets(qlen, nb)
+            assert int(qlen.max()) <= 0x3ff \
+                and int(close_max.max()) <= 0x3ff \
+                and int(init_max.max()) <= 0x3ff \
+                and int(thr.max()) <= 0x3ff, \
+                "read length exceeds far-meta bit packing"
+            meta = _far_meta(center, qlen, close_max, init_max, ms, tm,
+                             thr, comp_size)
+            payload = _native_pack_far(blob, offs, nb, b, lmax, meta)
+        with g_timer.phase("fused: dispatch far"):
+            dev = self._far_call(
+                payload, spans=tuple(spans), ws=tuple(ws), lmax=lmax,
+                mpm=self.mpm, bp_start=bp_start,
+                lsteps=_round_up(int(qlen[:nb].max()), 16))
         return dict(dev=dev, base=base, nb=nb, b=b, qlen=qlen, blob=blob,
                     offs=offs, wins=wins, ws=ws, lmax=lmax)
 
     def _far_decode(self, st, results):
+        codes = _native_codes(st["blob"], st["offs"], st["nb"], st["b"],
+                              st["lmax"])
+        with g_timer.phase("fused: far wait"):
+            out = st["dev"].get()
+        with g_timer.phase("fused: decode far"):
+            self._far_decode_rows(st, results, out, codes)
+
+    def _far_decode_rows(self, st, results, out, codes):
         base, nb, lmax = st["base"], st["nb"], st["lmax"]
         qlen, wins, ws = st["qlen"], st["wins"], st["ws"]
-        codes = _native_codes(st["blob"], st["offs"], nb, st["b"], lmax)
-        t2 = time.monotonic()
-        out = st["dev"].get()
-        g_timer.add(f"fused: far wait ws={tuple(ws)} b={st['b']}",
-                    time.monotonic() - t2)
-        t2 = time.monotonic()
-
         nw = lmax // 32
         emit = unpack_words(out[:nb, :nw], lmax)
         rep = out[:nb, nw].astype(np.int64)
@@ -1269,4 +1269,3 @@ class TorchFusedBackend:
                 results[base + i] = (None, False, True, True)
                 continue
             results[base + i] = (ch, lanel[i], True, False)
-        g_timer.add("fused: decode far", time.monotonic() - t2)

@@ -25,7 +25,6 @@ at module top.
 """
 from __future__ import annotations
 
-import time
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -34,6 +33,7 @@ import torch
 from pindel_tpu_torch import dna
 from pindel_tpu_torch.config import MAX_READ_LENGTH
 from pindel_tpu_torch.genome import SPACER
+from pindel_tpu_torch.ops import fused_cuda
 from pindel_tpu_torch.ops import sharded_search as ss
 from pindel_tpu_torch.ops.search_np import Lane
 from pindel_tpu_torch.profiling import g_timer
@@ -313,47 +313,43 @@ class TorchLaneBackend:
                 out.extend(self.run(batch_lanes[lo:hi], bp_start,
                                     max_snps[lo:hi], tsec_minus[lo:hi]))
             return out
-        t_pack = time.monotonic()
-        nl = max(len(lanes) for lanes in batch_lanes)
-        widths = [max((l.end - l.start) for l in lanes) if lanes else 1
-                  for lanes in batch_lanes]
-        w = self._bucket(max(max(widths), 1))
-        qlens = [int(lanes[0].query.shape[0]) for lanes in batch_lanes]
-        lmax = _round_up(max(qlens), 128)
-        if w + lmax > SPACER:
-            # the JAX engine asserts here (engine_jax.py:273-275): a tile
-            # past the spacer would read the neighbouring chromosome
-            raise NotImplementedError(
-                f"window bucket {w}+{lmax} exceeds the spacer; chunked "
-                "far-end search for very large -x is not implemented in "
-                "the reference either (ROADMAP Queue 3)")
+        with g_timer.phase("device: pack lanes"):
+            nl = max(len(lanes) for lanes in batch_lanes)
+            widths = [max((l.end - l.start) for l in lanes) if lanes else 1
+                      for lanes in batch_lanes]
+            w = self._bucket(max(max(widths), 1))
+            qlens = [int(lanes[0].query.shape[0]) for lanes in batch_lanes]
+            lmax = _round_up(max(qlens), 128)
+            if w + lmax > SPACER:
+                # the JAX engine asserts here (engine_jax.py:273-275): a tile
+                # past the spacer would read the neighbouring chromosome
+                raise NotImplementedError(
+                    f"window bucket {w}+{lmax} exceeds the spacer; chunked "
+                    "far-end search for very large -x is not implemented in "
+                    "the reference either (ROADMAP Queue 3)")
 
-        b = len(batch_lanes)
-        (slice_start, rev, qq, valid_w, lane_fwd, lane_dir_minus,
-         lane_strand_minus, lane_chr) = pack_lanes(batch_lanes, b, nl, w,
-                                                   lmax)
-        qlen_a = np.array(qlens, dtype=np.int32)
-        ms_a = np.array(max_snps, dtype=np.int32)
-        tm_a = np.array(tsec_minus, dtype=np.int32)
-        max_allowed = np.float32(
-            np.array(qlens, dtype=np.float64) * np.float64(self.rate))
-        t_kernel = time.monotonic()
-        g_timer.add("device: pack lanes", t_kernel - t_pack)
-        packed = self._search(slice_start, rev, qq, valid_w, qlen_a, ms_a,
-                              tm_a, max_allowed, w=w, lmax=lmax, nl=nl,
-                              bp_start=bp_start)
+            b = len(batch_lanes)
+            (slice_start, rev, qq, valid_w, lane_fwd, lane_dir_minus,
+             lane_strand_minus, lane_chr) = pack_lanes(batch_lanes, b, nl, w,
+                                                       lmax)
+            qlen_a = np.array(qlens, dtype=np.int32)
+            ms_a = np.array(max_snps, dtype=np.int32)
+            tm_a = np.array(tsec_minus, dtype=np.int32)
+            max_allowed = np.float32(
+                np.array(qlens, dtype=np.float64) * np.float64(self.rate))
+        with g_timer.phase("device: kernel+xfer"):
+            packed = self._search(slice_start, rev, qq, valid_w, qlen_a,
+                                  ms_a, tm_a, max_allowed, w=w, lmax=lmax,
+                                  nl=nl, bp_start=bp_start)
         LEGACY_ROWS += b
-        t_decode = time.monotonic()
-        g_timer.add(f"device: kernel+xfer w={w} nl={nl}",
-                    t_decode - t_kernel)
-        emit, min_mm, rep_lane, rep_w, full_last = unpack_kernel_output(
-            packed, lmax)
+        with g_timer.phase("device: decode emissions"):
+            emit, min_mm, rep_lane, rep_w, full_last = unpack_kernel_output(
+                packed, lmax)
 
-        out = decode_emissions(
-            emit, min_mm, rep_lane, rep_w, full_last,
-            slice_start, w, lmax, lane_fwd, lane_dir_minus,
-            lane_strand_minus, lane_chr)
-        g_timer.add("device: decode emissions", time.monotonic() - t_decode)
+            out = decode_emissions(
+                emit, min_mm, rep_lane, rep_w, full_last,
+                slice_start, w, lmax, lane_fwd, lane_dir_minus,
+                lane_strand_minus, lane_chr)
         return out
 
     def _search(self, slice_start, rev, qq, valid_w, qlen, ms, tm,
@@ -367,6 +363,8 @@ class TorchLaneBackend:
         step = b if on_card else max(1, self.ROW_ELEMS // (nl * w))
         kernel = _route_kernel if on_card else _search_kernel
         parts = []
+        fused_cuda.count_upload(sum(a.nbytes for a in (
+            slice_start, rev, qq, valid_w, qlen, ms, tm, max_allowed)))
         with torch.inference_mode():
             for lo in range(0, b, step):
                 hi = min(lo + step, b)

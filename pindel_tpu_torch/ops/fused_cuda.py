@@ -12,7 +12,10 @@ The library is compiled with ``nvcc`` for ``sm_90a`` under
 wrapper checks its inputs, allocates its output, launches on PyTorch's
 current stream and counts its launches in ``LAUNCHES`` (per card index in
 ``LAUNCHES_BY_DEVICE``, per kernel, ``close``, ``far`` or ``far_win``, in
-``LAUNCHES_BY_KERNEL``); a failed build or launch raises.
+``LAUNCHES_BY_KERNEL``); a failed build or launch raises.  ``UPLOAD_BYTES``
+counts what the search backends hand their device from host memory: each
+launch's payload, each per-lane search call's lanes and each chromosome's
+state (on a card, copies host to device).
 """
 from __future__ import annotations
 
@@ -38,6 +41,7 @@ FAR_WIN_WORDS = 4        # meta words of a far_win payload row (FW_WORDS)
 LAUNCHES = 0        # kernel launches since import (or the last reset)
 LAUNCHES_BY_DEVICE = collections.Counter()   # the same, per card index
 LAUNCHES_BY_KERNEL = collections.Counter()   # close, far, far_win
+UPLOAD_BYTES = 0    # bytes sent host to device since import (or reset)
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -235,11 +239,20 @@ def search_launches_by_device() -> collections.Counter:
     return scan_cuda.LAUNCHES_BY_DEVICE + LAUNCHES_BY_DEVICE
 
 
+def count_upload(nbytes: int) -> None:
+    """Count ``nbytes`` sent from host memory to a search device."""
+    global UPLOAD_BYTES
+    with _LOCK:
+        UPLOAD_BYTES += nbytes
+
+
 def reset_launches() -> None:
-    """Set the scan's and these kernels' counts to 0."""
-    global LAUNCHES
+    """Set the scan's and these kernels' counts, and ``UPLOAD_BYTES``,
+    to 0."""
+    global LAUNCHES, UPLOAD_BYTES
     scan_cuda.LAUNCHES = 0
     scan_cuda.LAUNCHES_BY_DEVICE.clear()
     LAUNCHES = 0
     LAUNCHES_BY_DEVICE.clear()
     LAUNCHES_BY_KERNEL.clear()
+    UPLOAD_BYTES = 0

@@ -20,7 +20,6 @@ or ``TorchShardedBackend`` under a ``Searcher``.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -181,52 +180,46 @@ class TorchShardedBackend:
         from pindel_tpu_torch.genome import SPACER
         if not batch_lanes:
             return []
-        t_pack = time.monotonic()
-        nl = max(len(lanes) for lanes in batch_lanes)
-        widths = [max((ln.end - ln.start) for ln in lanes) if lanes else 1
-                  for lanes in batch_lanes]
-        w = self._bucket(max(max(widths), 1))
-        qlens = [int(lanes[0].query.shape[0]) for lanes in batch_lanes]
-        lmax = (max(qlens) + 31) // 32 * 32
-        if w + lmax > SPACER:
-            raise ValueError(f"window bucket {w}+{lmax} exceeds the spacer "
-                             f"({SPACER}): a tile would read the "
-                             "neighbouring chromosome")
+        with g_timer.phase("sharded: pack lanes"):
+            nl = max(len(lanes) for lanes in batch_lanes)
+            widths = [max((ln.end - ln.start) for ln in lanes)
+                      if lanes else 1 for lanes in batch_lanes]
+            w = self._bucket(max(max(widths), 1))
+            qlens = [int(lanes[0].query.shape[0]) for lanes in batch_lanes]
+            lmax = (max(qlens) + 31) // 32 * 32
+            if w + lmax > SPACER:
+                raise ValueError(f"window bucket {w}+{lmax} exceeds the "
+                                 f"spacer ({SPACER}): a tile would read "
+                                 "the neighbouring chromosome")
 
-        b = len(batch_lanes)
-        b_pad = (b + self.dp - 1) // self.dp * self.dp
-        (slice_start, rev, qq, valid_w, lane_fwd, lane_dir_minus,
-         lane_strand_minus, lane_chr) = pack_lanes(batch_lanes, b_pad, nl,
-                                                   w, lmax)
+            b = len(batch_lanes)
+            b_pad = (b + self.dp - 1) // self.dp * self.dp
+            (slice_start, rev, qq, valid_w, lane_fwd, lane_dir_minus,
+             lane_strand_minus, lane_chr) = pack_lanes(batch_lanes, b_pad, nl,
+                                                       w, lmax)
 
-        qlen_a = np.zeros(b_pad, dtype=np.int32)
-        qlen_a[:b] = qlens
-        ms = np.zeros(b_pad, dtype=np.int32)
-        ms[:b] = max_snps
-        tm = np.zeros(b_pad, dtype=np.int32)
-        tm[:b] = tsec_minus
-        max_allowed = np.zeros(b_pad, dtype=np.float32)
-        max_allowed[:b] = np.float32(
-            np.array(qlens, dtype=np.float64) * np.float64(self.rate))
-
-        t_search = time.monotonic()
-        g_timer.add("sharded: pack lanes", t_search - t_pack)
-        emit, min_mm, rep_lane, rep_w, full_mm = _search(
-            self.chroms, slice_start, rev, qq, valid_w, qlen_a, ms, tm,
-            self.maxmm, max_allowed, grid=self.grid, w_total=w, lmax=lmax,
-            nl=nl, mpm=self.mpm, bp_start=bp_start)
-        t_decode = time.monotonic()
-        g_timer.add(f"sharded: search+xfer w={w} nl={nl}",
-                    t_decode - t_search)
-        emit = emit[:b]
-        full_mm = full_mm[:b]
-        last = np.where(emit.any(axis=1),
-                        emit.shape[1] - 1 - np.argmax(emit[:, ::-1], axis=1),
-                        0)
-        full_last = full_mm[np.arange(b), last]
-        out = decode_emissions(
-            emit, min_mm[:b], rep_lane[:b], rep_w[:b], full_last,
-            slice_start[:b], w, lmax, lane_fwd[:b], lane_dir_minus[:b],
-            lane_strand_minus[:b], lane_chr[:b])
-        g_timer.add("sharded: decode emissions", time.monotonic() - t_decode)
+            qlen_a = np.zeros(b_pad, dtype=np.int32)
+            qlen_a[:b] = qlens
+            ms = np.zeros(b_pad, dtype=np.int32)
+            ms[:b] = max_snps
+            tm = np.zeros(b_pad, dtype=np.int32)
+            tm[:b] = tsec_minus
+            max_allowed = np.zeros(b_pad, dtype=np.float32)
+            max_allowed[:b] = np.float32(
+                np.array(qlens, dtype=np.float64) * np.float64(self.rate))
+        with g_timer.phase("sharded: search+xfer"):
+            emit, min_mm, rep_lane, rep_w, full_mm = _search(
+                self.chroms, slice_start, rev, qq, valid_w, qlen_a, ms, tm,
+                self.maxmm, max_allowed, grid=self.grid, w_total=w, lmax=lmax,
+                nl=nl, mpm=self.mpm, bp_start=bp_start)
+        with g_timer.phase("sharded: decode emissions"):
+            emit = emit[:b]
+            full_mm = full_mm[:b]
+            last = np.where(emit.any(axis=1), emit.shape[1] - 1
+                            - np.argmax(emit[:, ::-1], axis=1), 0)
+            full_last = full_mm[np.arange(b), last]
+            out = decode_emissions(
+                emit, min_mm[:b], rep_lane[:b], rep_w[:b], full_last,
+                slice_start[:b], w, lmax, lane_fwd[:b], lane_dir_minus[:b],
+                lane_strand_minus[:b], lane_chr[:b])
         return out

@@ -86,6 +86,7 @@ class TorchMeshBackend(ef.TorchFusedBackend):
             raise ValueError(f"{payload.shape[0]} payload rows do not "
                              f"split over {self.dp} devices")
         rows = payload.shape[0] // self.dp
+        ef.fused_cuda.count_upload(payload.nbytes)
         with torch.inference_mode():
             shards = [torch.from_numpy(payload[k * rows:(k + 1) * rows])
                       .to(dev) for k, dev in enumerate(self.devices)]

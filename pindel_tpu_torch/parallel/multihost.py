@@ -108,21 +108,20 @@ class Spool:
         without shipping it, TimeoutError after TIMEOUT seconds.  The time
         spent goes to the timer phase WAIT_PHASE."""
         owner = widx % self.num_hosts
-        t0 = time.monotonic()
-        deadline = t0 + self.TIMEOUT
-        while not arrived():
-            for rank, proc in sorted(self.procs.items()):
-                code = proc.poll()
-                if code not in (None, 0):
-                    raise WorkerFailed(rank, code)
-                if code == 0 and rank == owner and not arrived():
-                    raise WorkerFailed(rank, code, "exited with code 0 "
-                                       f"without shipping window {widx}")
-            if time.monotonic() > deadline:
-                raise TimeoutError(f"window {widx} never arrived from "
-                                   f"worker {owner}")
-            time.sleep(POLL_S)
-        g_timer.add(WAIT_PHASE, time.monotonic() - t0)
+        deadline = time.monotonic() + self.TIMEOUT
+        with g_timer.phase(WAIT_PHASE):
+            while not arrived():
+                for rank, proc in sorted(self.procs.items()):
+                    code = proc.poll()
+                    if code not in (None, 0):
+                        raise WorkerFailed(rank, code)
+                    if code == 0 and rank == owner and not arrived():
+                        raise WorkerFailed(rank, code, "exited with code 0 "
+                                           f"without shipping window {widx}")
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"window {widx} never arrived from "
+                                       f"worker {owner}")
+                time.sleep(POLL_S)
 
 
 class WindowSpool(Spool):

@@ -43,7 +43,8 @@ from pindel_tpu_torch.report.reporter import (
     sort_and_output_tandem_duplications,
     sort_and_report_interchromosomal_events, sort_output_d, sort_output_di,
     sort_output_li, sort_output_rest, sort_output_si)
-from pindel_tpu_torch.profiling import g_fallback, g_log, g_read_stats, g_timer
+from pindel_tpu_torch.profiling import (ROOT, g_fallback, g_log,
+                                        g_read_stats, g_timer)
 from pindel_tpu_torch.search import Searcher
 
 AROUND_REGION_BUFFER = 10_000   # pindel.cpp:127
@@ -359,7 +360,8 @@ class Pipeline:
             # output is identical to the serial path
             from concurrent.futures import ThreadPoolExecutor
             with ThreadPoolExecutor(max_workers=s.num_threads) as pool:
-                outs = list(pool.map(collect, self.bam_entries))
+                outs = list(pool.map(g_timer.bind(collect),
+                                     self.bam_entries))
         else:
             outs = [collect(entry) for entry in self.bam_entries]
         reads: List[SplitRead] = []
@@ -418,15 +420,17 @@ class Pipeline:
             chrom = self.genome.get(bed.chr_name)
             if chrom is None:
                 raise ValueError(f"no chromosome {bed.chr_name}")
-            if not self.bam_input:
-                self._reload_input_if_consumed(bed.chr_name)
-            chr_seq = chrom.seq_str(0, chrom.comp_size)
-            self.state.mask = bytearray(b"N" * chrom.comp_size)
+            with g_timer.phase("entry: region"):
+                if not self.bam_input:
+                    self._reload_input_if_consumed(bed.chr_name)
+                chr_seq = chrom.seq_str(0, chrom.comp_size)
+                self.state.mask = bytearray(b"N" * chrom.comp_size)
             self.g_max_pos = 0          # reset per bed region (:1799)
             box_size = max(chrom.comp_size // 30000, 1)
             num_boxes = chrom.comp_size * 2 // box_size + 1
-            backend = (self.backend_factory(chrom)
-                       if self.backend_factory else None)
+            with g_timer.phase("entry: chromosome"):
+                backend = (self.backend_factory(chrom)
+                           if self.backend_factory else None)
             if backend is not None:
                 self.searcher.backend = backend
 
@@ -510,9 +514,10 @@ class Pipeline:
                                          num_boxes, bed)
             pending = pending_far = None
         # final interchromosomal merge, unconditional (pindel.cpp:1999)
-        if "INT" in self._outputs:
-            self._outputs["INT"].flush()
-        merge_inter_chr(self.settings.out("INT"))
+        with g_timer.phase("entry: finish"):
+            if "INT" in self._outputs:
+                self._outputs["INT"].flush()
+            merge_inter_chr(self.settings.out("INT"))
 
     def _bd_regions_cb(self, chrom: Chromosome):
         """Far-end evidence-window callback over the CURRENT bd mask, or
@@ -548,7 +553,8 @@ class Pipeline:
         if self.bam_input and s.search_discordant_read_pair:
             with g_timer.phase("bd: rp discovery"):
                 rp, rp_inter = self._window_rp_discovery(chrom, window)
-            with g_timer.phase("bd: update"):
+            with g_timer.phase("bd: update"), \
+                    g_timer.phase("bd: update_bd"):
                 bd_delta = self.bd.update_bd(
                     rp, rp_inter, self._out("RP"),
                     s.report_interchromosomal_events)
@@ -590,17 +596,18 @@ class Pipeline:
         # and g_sampleNames.insert for every in-window read
         # (reader.cpp:290,335) — both strictly in window order
         from pindel_tpu_torch.textindex import ReadBatch
-        if isinstance(reads, ReadBatch):
-            if reads.n:
-                self.state.max_insert_size = max(
-                    self.state.max_insert_size, int(reads.isz.max()))
-            self.state.sample_names.update(reads.tags)
-        else:
-            for r in reads:
-                if r.insert_size > self.state.max_insert_size:
-                    self.state.max_insert_size = r.insert_size
-                if not self.bam_input:
-                    self.state.sample_names.add(r.tag)
+        with g_timer.phase("window: bookkeeping"):
+            if isinstance(reads, ReadBatch):
+                if reads.n:
+                    self.state.max_insert_size = max(
+                        self.state.max_insert_size, int(reads.isz.max()))
+                self.state.sample_names.update(reads.tags)
+            else:
+                for r in reads:
+                    if r.insert_size > self.state.max_insert_size:
+                        self.state.max_insert_size = r.insert_size
+                    if not self.bam_input:
+                        self.state.sample_names.add(r.tag)
         # RP discovery + BD-like event conversion (pindel.cpp:1837-1847),
         # then window rasterization.  Neither affects close-end mapping,
         # so they run after the close dispatch.  Sharding: only the
@@ -617,7 +624,8 @@ class Pipeline:
             # the shared mask
             bd_delta = staged_delta
             if with_rp:
-                with g_timer.phase("bd: update"):
+                with g_timer.phase("bd: update"), \
+                        g_timer.phase("bd: apply delta"):
                     self.bd.apply_bd_delta(bd_delta or [])
         elif token is _DELEGATED:
             with g_timer.phase("Matching close ends"):
@@ -625,7 +633,8 @@ class Pipeline:
                 kept, bd_delta, rp_text = self.spool.load(window.index)
             if with_rp:
                 self._out("RP").write(rp_text)
-                with g_timer.phase("bd: update"):
+                with g_timer.phase("bd: update"), \
+                        g_timer.phase("bd: apply delta"):
                     self.bd.apply_bd_delta(bd_delta)
         elif with_rp:
             import io
@@ -633,7 +642,8 @@ class Pipeline:
                 rp, rp_inter = self._window_rp_discovery(chrom, window)
             worker = self.spool is not None and self.spool.worker
             sink = io.StringIO() if worker else self._out("RP")
-            with g_timer.phase("bd: update"):
+            with g_timer.phase("bd: update"), \
+                    g_timer.phase("bd: update_bd"):
                 bd_delta = self.bd.update_bd(
                     rp, rp_inter, sink, s.report_interchromosomal_events)
             if worker:
@@ -642,7 +652,8 @@ class Pipeline:
             self.bd.load_region(chrom.name,
                                 window.current_start + SPACER,
                                 window.current_end + SPACER)
-        self._update_ref_coverage(ref_reads, window)
+        with g_timer.phase("coverage: reference reads"):
+            self._update_ref_coverage(ref_reads, window)
         g_read_stats.in_window += len(reads)
         if kept is None:
             # stream: finalize each close chunk as it lands and dispatch
@@ -657,24 +668,26 @@ class Pipeline:
             self.spool.dump(window.index, [], bd_delta, rp_text)
             g_read_stats.reset()
             return
-        for r in kept:
-            if r.matched_d == PLUS:
-                g_read_stats.close_mapped_plus += 1
-            else:
-                g_read_stats.close_mapped_minus += 1
-        for r in kept:
-            if self.state.report_length < r.read_length:
-                self.state.report_length = r.read_length
-            self.state.sample_names.add(r.tag)
+        with g_timer.phase("window: bookkeeping"):
+            for r in kept:
+                if r.matched_d == PLUS:
+                    g_read_stats.close_mapped_plus += 1
+                else:
+                    g_read_stats.close_mapped_minus += 1
+            for r in kept:
+                if self.state.report_length < r.read_length:
+                    self.state.report_length = r.read_length
+                self.state.sample_names.add(r.tag)
         if kept:
             if s.report_close_mapped_reads or \
                     s.report_only_close_mapped_reads:
-                out = self._out("CloseEndMapped")
-                for r in kept:
-                    out.write(f"{r.name}\n{r.seq}\n{r.matched_d}"
-                              f"\t{r.frag_name}\t{r.matched_rel_pos}"
-                              f"\t{r.ms}\t{r.insert_size}"
-                              f"\t{r.tag}\n")
+                with g_timer.phase("window: close-end report"):
+                    out = self._out("CloseEndMapped")
+                    for r in kept:
+                        out.write(f"{r.name}\n{r.seq}\n{r.matched_d}"
+                                  f"\t{r.frag_name}\t{r.matched_rel_pos}"
+                                  f"\t{r.ms}\t{r.insert_size}"
+                                  f"\t{r.tag}\n")
             if not s.report_only_close_mapped_reads:
                 if far_tokens is not None:
                     # far kernels already dispatched per close chunk
@@ -682,12 +695,14 @@ class Pipeline:
                         for ft in far_tokens:
                             self.searcher.search_far_ends_finish(ft)
                 from pindel_tpu_torch.reads import MINUS as _M, PLUS as _P
-                for r in kept:
-                    fa = r.up_far
-                    if fa:
-                        g_read_stats.far_mapped += 1
-                        r.far_frag_name = fa.chr_names[fa.chr_id[0]]
-                        r.matched_far_d = _M if fa.strand_minus[0] else _P
+                with g_timer.phase("window: bookkeeping"):
+                    for r in kept:
+                        fa = r.up_far
+                        if fa:
+                            g_read_stats.far_mapped += 1
+                            r.far_frag_name = fa.chr_names[fa.chr_id[0]]
+                            r.matched_far_d = (_M if fa.strand_minus[0]
+                                               else _P)
                 if self.spool is not None and self.spool.worker:
                     # worker role: ship this window's searched reads to
                     # the coordinator and stop before any reporting
@@ -698,15 +713,17 @@ class Pipeline:
                 inter_sr: List[SplitRead] = []
                 if s.report_interchromosomal_events:
                     import copy
-                    inter_sr = [copy.copy(r) for r in kept
-                                if r.up_far
-                                and r.frag_name != r.far_frag_name]
+                    with g_timer.phase("window: interchromosomal"):
+                        inter_sr = [copy.copy(r) for r in kept
+                                    if r.up_far
+                                    and r.frag_name != r.far_frag_name]
                 with g_timer.phase("Searching and reporting variations"):
                     self._search_svs(kept, chr_seq, window,
                                      box_size, num_boxes, bed)
                 if s.report_interchromosomal_events and inter_sr:
-                    sort_and_report_interchromosomal_events(
-                        inter_sr, self._out("INT"))
+                    with g_timer.phase("window: interchromosomal"):
+                        sort_and_report_interchromosomal_events(
+                            inter_sr, self._out("INT"))
         # showReadStats per window (reference reader.cpp:183-193)
         g_read_stats.show(
             f"{chrom.name}:{window.displayed_start}-"
@@ -889,42 +906,60 @@ def run_files(reference_fa: str, pindel_file: Optional[str],
     s.output_prefix = output_prefix
     factory = make_backend_factory(s, device, backend, devices)
     # per-run reset so repeated runs in one process report per-run costs
-    # and per-run fallback counts
-    g_timer.reset()
+    # and per-run fallback counts; spans are recorded under --profile or
+    # a torch profiler
+    g_timer.reset(record=s.profile)
     g_fallback.reset()
-    if s.log_filename:                    # -L (pindel.cpp:839-842)
-        g_log.redirect(s.log_filename)
-    genome = Genome.from_fasta(reference_fa)
-    pipe = Pipeline(s, genome, backend_factory=factory)
-    pipe.spool = spool                    # multi-process window sharding
-    pipe.create_output_files()
-    # the detectors run a Python re-statement when their native library
-    # fails to load; load it here so a failed build raises
-    from pindel_tpu_torch.events.detect import _native_detect
-    if _native_detect() is None:
-        raise RuntimeError("native/detect.cpp failed to build or load")
-    if bam_config:
-        if s.search_discordant_read_pair:
-            # bddata.modify_rp runs a Python re-statement when its native
-            # library fails to load; load it here so a failed build raises
-            from pindel_tpu_torch.bddata import _native_rp
-            _native_rp()
-        pipe.load_bam_config(bam_config)
-    elif pindel_config:
-        pipe.load_pindel_config(pindel_config)
-    elif pindel_file:
-        pipe.load_pindel_input(pindel_file)
-    else:
-        raise ValueError("need a pindel file (-p), bam config (-i) or "
-                         "pindel config (-P)")
     try:
-        pipe.run()
+        with g_timer.phase(ROOT):
+            _run_pass(s, reference_fa, pindel_file, bam_config,
+                      pindel_config, factory, spool)
     finally:
-        pipe.close()
         # exit-time phase report (reference dumps timers at pindel.cpp:2010)
         g_timer.report(stream=g_log, coarse_only=not s.profile)
         g_log.close()
     return s
+
+
+def _run_pass(s: Settings, reference_fa: str, pindel_file: Optional[str],
+              bam_config: Optional[str], pindel_config: Optional[str],
+              factory, spool) -> None:
+    """One pass of run_files after its resets, under the root span."""
+    if s.log_filename:                    # -L (pindel.cpp:839-842)
+        g_log.redirect(s.log_filename)
+    with g_timer.phase("entry: reference"):
+        genome = Genome.from_fasta(reference_fa)
+    with g_timer.phase("entry: inputs"):
+        pipe = Pipeline(s, genome, backend_factory=factory)
+        pipe.spool = spool                # multi-process window sharding
+        pipe.create_output_files()
+        # the detectors run a Python re-statement when their native
+        # library fails to load; load it here so a failed build raises
+        from pindel_tpu_torch.events.detect import _native_detect
+        if _native_detect() is None:
+            raise RuntimeError("native/detect.cpp failed to build or load")
+        if bam_config:
+            if s.search_discordant_read_pair:
+                # bddata.modify_rp runs a Python re-statement when its
+                # native library fails to load; load it here so a failed
+                # build raises
+                from pindel_tpu_torch.bddata import _native_rp
+                _native_rp()
+            # the streamed reader's block index is built on open
+            with g_timer.phase("intake: bam index"):
+                pipe.load_bam_config(bam_config)
+        elif pindel_config:
+            pipe.load_pindel_config(pindel_config)
+        elif pindel_file:
+            pipe.load_pindel_input(pindel_file)
+        else:
+            raise ValueError("need a pindel file (-p), bam config (-i) or "
+                             "pindel config (-P)")
+    try:
+        pipe.run()
+    finally:
+        with g_timer.phase("entry: finish"):
+            pipe.close()
 
 
 def _bam_readers(entries) -> Dict[str, object]:

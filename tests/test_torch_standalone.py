@@ -23,22 +23,36 @@ PORT_FILES = sorted(
 
 # host modules copied unchanged apart from their imports, and the native
 # sources, copied byte for byte
-COPIED = ["profiling.py", "config.py", "dna.py", "genome.py", "reads.py",
+COPIED = ["config.py", "dna.py", "genome.py", "reads.py",
           "textindex.py", "cxxsort.py", "regions.py", "depth.py",
           "ops/search_np.py", "search.py", "events/canonical.py",
-          "events/detect.py", "report/reporter.py", "bam.py", "bddata.py",
+          "events/detect.py", "report/reporter.py", "bddata.py",
           "genotyping.py", "parallel/payload.py", "pindel2vcf.py",
           "pindel2vcf4tcga.py", "sam2pindel.py", "bam2pindel.py",
           "somatic.py", "native/bamio.cpp",
           "native/detect.cpp", "native/packer.cpp", "native/rp.cpp",
           "native/seqmatch.cpp", "native/textscan.cpp"]
-# copied modules that differ: module -> (its top-level names that differ,
-# why)
+# copied modules that differ: module -> (its top-level names, or a class's
+# ``Class.method`` names, that differ, why); the class's other methods are
+# still held to the reference's
 DIFFERS = {
     "pipeline.py": (
-        ("make_backend_factory", "run_files"),
+        ("make_backend_factory", "run_files", "Pipeline.run",
+         "Pipeline._search_stage", "Pipeline._process_window",
+         "Pipeline._window_reads_bam"),
         "the port's entry points build torch backends; the reference's "
-        "switch over its own backend names stays with it"),
+        "switch over its own backend names stays with it; the port's pass "
+        "runs under a root span with spans for set-up, the reference-read "
+        "coverage, the bookkeeping of a window, and update_bd and "
+        "apply_bd_delta apart"),
+    "profiling.py": (
+        ("Timer",),
+        "the port's Timer records spans with parents and threads, opens "
+        "each as a profiler range while recording, and sums under a lock"),
+    "bam.py": (
+        ("BamReader.collect_sr",),
+        "the port times the native decode and the building of the read "
+        "objects as two spans"),
     "dd.py": (("run_dd_files",),
               "-q's entry is pipeline.run_dd_files, on the port's factory"),
     "assembly.py": (("run_assembly_files",),
@@ -142,18 +156,30 @@ def _canonical_imports(src: str, package: str) -> str:
     return "\n".join(lines)
 
 
-def _top_level(src: str):
-    """name -> source of each top-level definition or assignment."""
+def _definitions(body, src: str, prefix: str = ""):
+    """name -> source of each definition or assignment in ``body``; a
+    class's methods and assignments also as ``Class.name``, and its
+    docstring as ``Class.__doc__``."""
     out = {}
-    for node in ast.parse(src).body:
+    for node in body:
         if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
-            out[node.name] = ast.get_source_segment(src, node)
+            out[prefix + node.name] = ast.get_source_segment(src, node)
         elif isinstance(node, (ast.Assign, ast.AnnAssign)):
             targets = (node.targets if isinstance(node, ast.Assign)
                        else [node.target])
             for t in targets:
-                out[ast.unparse(t)] = ast.get_source_segment(src, node)
+                out[prefix + ast.unparse(t)] = ast.get_source_segment(
+                    src, node)
+        if isinstance(node, ast.ClassDef) and not prefix:
+            out[node.name + ".__doc__"] = ast.get_docstring(node)
+            out.update(_definitions(node.body, src, node.name + "."))
     return out
+
+
+def _top_level(src: str):
+    """name -> source of each top-level definition or assignment, and of
+    each class's members (``_definitions``)."""
+    return _definitions(ast.parse(src).body, src)
 
 
 @pytest.mark.parametrize("module", COPIED + sorted(DIFFERS))
@@ -173,7 +199,10 @@ def test_host_copy_matches_reference(module):
         return
     names, _why = DIFFERS[module]
     ours, theirs = _top_level(port), _top_level(reference)
-    kept = [n for n in theirs if n not in names]
+    # a class with a differing method is held member by member
+    opened = {n.split(".")[0] for n in names if "." in n}
+    kept = [n for n in theirs if n not in names and n not in opened
+            and not (n.split(".")[0] in names and "." in n)]
     assert kept and all(n in theirs for n in names)
     for name in kept:
         assert ours.get(name) == theirs[name], (
