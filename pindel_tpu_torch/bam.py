@@ -4,7 +4,7 @@ The heavy lifting (BGZF decode, record parse, mate pairing, weird/anchor/
 ref-read classification, SPLIT_READ building) runs in C++
 (native/bamio.cpp), mirroring the reference's reader.cpp semantics; this
 module wraps the C ABI and converts the packed outputs into SplitRead
-objects plus reference-supporting read tuples.
+objects plus the window's reference-supporting reads as arrays.
 
 Reference: bam config file format — one line per BAM: path, insert size,
 sample tag (readBamConfigFile, pindel.cpp:659-692).
@@ -14,6 +14,8 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 from typing import List, Optional, Tuple
+
+import numpy as np
 
 from pindel_tpu_torch.profiling import g_timer
 from pindel_tpu_torch.reads import SplitRead
@@ -34,6 +36,32 @@ class RefRead:
     mq: int
     read_length: int
     tag: str
+
+
+@dataclasses.dataclass
+class RefReads:
+    """One BAM entry's reference reads over a window, as arrays in file
+    order: the REF_READ fields ``pos`` (int64), ``mq`` and ``length``
+    (int32), one element a read, all under the entry's sample ``tag``.
+    Iterating yields them as ``RefRead`` objects."""
+
+    tag: str
+    pos: np.ndarray
+    mq: np.ndarray
+    length: np.ndarray
+
+    @classmethod
+    def empty(cls, tag: str) -> "RefReads":
+        return cls(tag, np.zeros(0, np.int64), np.zeros(0, np.int32),
+                   np.zeros(0, np.int32))
+
+    def __len__(self) -> int:
+        return len(self.pos)
+
+    def __iter__(self):
+        for p, q, n in zip(self.pos.tolist(), self.mq.tolist(),
+                           self.length.tolist()):
+            yield RefRead(p, q, n, self.tag)
 
 
 def read_bam_config(path: str) -> List[BamConfigEntry]:
@@ -159,7 +187,7 @@ class BamReader:
                    insert_size: int, tag: str, biol_size: int,
                    min_anchor_quality: int = 0, nm: int = 2,
                    max_mismatch_rate: float = 0.02
-                   ) -> Tuple[List[SplitRead], List[RefRead]]:
+                   ) -> Tuple[List[SplitRead], RefReads]:
         """Split-read + ref-read collection over [start, end).
 
         Mirrors ReadInBamReads_SR (reader.cpp:483-559) for one window of
@@ -167,7 +195,7 @@ class BamReader:
         raised as ValueError.
         """
         if chrom_name not in self.ref_names:
-            return [], []
+            return [], RefReads.empty(tag)
         tid = self.ref_names.index(chrom_name)
         with g_timer.phase("intake: bam decode"):
             n = self._lib.ptbam_collect_sr(
@@ -177,8 +205,10 @@ class BamReader:
             return self._sr_objects(n, chrom_name, insert_size, tag)
 
     def _sr_objects(self, n: int, chrom_name: str, insert_size: int,
-                    tag: str) -> Tuple[List[SplitRead], List[RefRead]]:
-        """The split reads and reference reads of the last collect_sr."""
+                    tag: str) -> Tuple[List[SplitRead], RefReads]:
+        """The split reads and reference reads of the last collect_sr; the
+        reference reads are copied out of the decoder's pools, which its
+        next call overwrites."""
         reads: List[SplitRead] = []
         if n:
             names = ctypes.string_at(
@@ -205,14 +235,15 @@ class BamReader:
                 r.set_seq(seq)
                 reads.append(r)
         nref = self._lib.ptbam_n_ref_reads(self._h)
-        ref_reads: List[RefRead] = []
-        if nref:
-            rp = self._lib.ptbam_ref_read_pos(self._h)
-            rq = self._lib.ptbam_ref_read_mq(self._h)
-            rl = self._lib.ptbam_ref_read_len(self._h)
-            ref_reads = [RefRead(int(rp[i]), int(rq[i]), int(rl[i]), tag)
-                         for i in range(nref)]
-        return reads, ref_reads
+        if not nref:
+            return reads, RefReads.empty(tag)
+
+        def pool(fn):
+            return np.ctypeslib.as_array(fn(self._h), (nref,)).copy()
+
+        return reads, RefReads(tag, pool(self._lib.ptbam_ref_read_pos),
+                               pool(self._lib.ptbam_ref_read_mq),
+                               pool(self._lib.ptbam_ref_read_len))
 
     def header_text(self) -> str:
         """SAM header text (for @RG sample dictionaries)."""

@@ -28,6 +28,7 @@ from typing import Dict, List, Optional, Sequence, TextIO
 import torch
 
 from pindel_tpu_torch import dna
+from pindel_tpu_torch.bam import RefReads
 from pindel_tpu_torch.config import Settings
 from pindel_tpu_torch.events.detect import (CandidateReads, SearchDeletions,
                                             SearchShortInsertions,
@@ -43,8 +44,8 @@ from pindel_tpu_torch.report.reporter import (
     sort_and_output_tandem_duplications,
     sort_and_report_interchromosomal_events, sort_output_d, sort_output_di,
     sort_output_li, sort_output_rest, sort_output_si)
-from pindel_tpu_torch.profiling import (ROOT, g_fallback, g_log,
-                                        g_read_stats, g_timer)
+from pindel_tpu_torch.profiling import (ROOT, g_coverage, g_fallback,
+                                        g_log, g_read_stats, g_timer)
 from pindel_tpu_torch.search import Searcher
 
 AROUND_REGION_BUFFER = 10_000   # pindel.cpp:127
@@ -365,11 +366,9 @@ class Pipeline:
         else:
             outs = [collect(entry) for entry in self.bam_entries]
         reads: List[SplitRead] = []
-        ref_reads: List = []
-        for rs, rr in outs:
+        for rs, _rr in outs:
             reads.extend(rs)
-            ref_reads.extend(rr)
-        return reads, ref_reads
+        return reads, [rr for _rs, rr in outs]
 
     def _window_rp_discovery(self, chrom: Chromosome,
                              window: LoopingSearchWindow):
@@ -388,23 +387,36 @@ class Pipeline:
             inter.extend(ri)
         return same, inter
 
-    def _update_ref_coverage(self, ref_reads: List,
+    def _update_ref_coverage(self, ref_reads: List[RefReads],
                              window: LoopingSearchWindow) -> None:
         """UpdateRefReadCoverage (pindel.cpp:1272-1330): per-sample
         per-position counts over the current window; read interior
-        positions 1..len-2 only."""
+        positions 1..len-2 only, for the reads that lie inside the window.
+        Each counted read of an entry adds +1 at its second base and -1 at
+        its last in a difference array, whose sum down the positions adds
+        into the entry's sample column."""
         import numpy as np
         samples = self.state.sorted_samples()
         idx = {name: i for i, name in enumerate(samples)}
         start = window.current_start
         end = window.current_end
-        cov = np.zeros((end - start + 1, len(samples)), dtype=np.int32)
+        n = end - start + 1
+        cov = np.zeros((n, len(samples)), dtype=np.int32)
+        handed = counted = 0
         for rr in ref_reads:
-            if rr.pos < start or rr.pos + rr.read_length > end:
+            handed += len(rr)
+            inside = (rr.pos >= start) & (rr.pos + rr.length <= end)
+            if not inside.any():
                 continue
-            sid = idx[rr.tag]
-            base = rr.pos - start
-            cov[base + 1: base + rr.read_length - 1, sid] += 1
+            # a tag the samples lack fails as the reference's lookup does
+            column = idx[rr.tag]
+            inside &= rr.length > 2
+            rows = rr.pos[inside] - start
+            delta = np.bincount(rows + 1, minlength=n)
+            delta -= np.bincount(rows + rr.length[inside] - 1, minlength=n)
+            cov[:, column] += np.cumsum(delta, dtype=np.int32)
+            counted += rows.size
+        g_coverage.add(handed, counted)
         self.state.ref_coverage = cov
 
     # ----------------------------------------------------------------- run
@@ -910,6 +922,7 @@ def run_files(reference_fa: str, pindel_file: Optional[str],
     # a torch profiler
     g_timer.reset(record=s.profile)
     g_fallback.reset()
+    g_coverage.reset()
     try:
         with g_timer.phase(ROOT):
             _run_pass(s, reference_fa, pindel_file, bam_config,
@@ -917,6 +930,8 @@ def run_files(reference_fa: str, pindel_file: Optional[str],
     finally:
         # exit-time phase report (reference dumps timers at pindel.cpp:2010)
         g_timer.report(stream=g_log, coarse_only=not s.profile)
+        if s.profile:
+            g_log.info("  " + g_coverage.show())
         g_log.close()
     return s
 

@@ -367,3 +367,28 @@ class FallbackStats:
 
 
 g_fallback = FallbackStats()
+
+
+class CoverageStats:
+    """Reference reads of a pass: ``reads`` handed to the coverage update
+    (``Pipeline._update_ref_coverage``), ``counted`` those inside their
+    window and longer than two bases, which add to its counts."""
+
+    def __init__(self) -> None:
+        self.reads = 0
+        self.counted = 0
+
+    def add(self, reads: int, counted: int) -> None:
+        self.reads += reads
+        self.counted += counted
+
+    def reset(self) -> None:
+        self.reads = 0
+        self.counted = 0
+
+    def show(self) -> str:
+        return ("reference reads to coverage %d, counted %d"
+                % (self.reads, self.counted))
+
+
+g_coverage = CoverageStats()

@@ -16,10 +16,12 @@ profiled pass's span tree (total and self seconds per path of span names,
 ``Timer.report``), its root's self share on the main thread, the largest
 distance between a span mapped onto the profiler's clock and its range, and
 the sums the benchmark's span and counter readers take (``coverage_s``,
-``entry_s``, ``device_wait_s``, ``oracle_read_pct``, ``upload_mb``) go to
-standard error; the last line of standard output is one JSON object with
-them, every pass's wall by mode, and ``device`` (the card's name and power
-limit).  ``--out DIR`` also writes the tree there.
+``entry_s``, ``device_wait_s``, ``oracle_read_pct``, ``upload_mb``) and the
+pass's reference reads (``coverage_reads``, ``coverage_counted``: handed to
+the coverage update, and counted there) go to standard error; the last line
+of standard output is one JSON object with them, every pass's wall by mode,
+and ``device`` (the card's name and power limit).  ``--out DIR`` also writes
+the tree there.
 """
 from __future__ import annotations
 
@@ -35,7 +37,8 @@ import torch
 
 from pindel_tpu_torch.__main__ import main as port_main
 from pindel_tpu_torch.ops import fused_cuda
-from pindel_tpu_torch.profiling import PREFIX, ROOT, g_fallback, g_timer
+from pindel_tpu_torch.profiling import (PREFIX, ROOT, g_coverage,
+                                        g_fallback, g_timer)
 from pindel_tpu_torch.tools import measure
 
 ROOT_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -152,6 +155,8 @@ def main(argv=None) -> int:
                                 items=g_timer.items(),
                                 fallback=(g_fallback.fallback,
                                           g_fallback.total),
+                                coverage=(g_coverage.reads,
+                                          g_coverage.counted),
                                 upload=fused_cuda.UPLOAD_BYTES)
     log(last["report"])
     root = [row for row in last["tree"] if row[0] == 0 and row[1] == ROOT][0]
@@ -167,6 +172,8 @@ def main(argv=None) -> int:
         device_wait_s=sum(items.get(n, 0.0) for n in WAITS),
         oracle_read_pct=100.0 * fb / total if total else None,
         upload_mb=last["upload"] / 1e6,
+        coverage_reads=last["coverage"][0],
+        coverage_counted=last["coverage"][1],
         tree=[list(row) for row in last["tree"]], device=card)
     cost = {m: out["medians"][m] / out["medians"]["off"] - 1
             for m in ("on", "profiled")}
@@ -177,8 +184,9 @@ def main(argv=None) -> int:
         f"{out['medians']} (cost {cost}); coverage_s {out['coverage_s']}, "
         f"entry_s {out['entry_s']:.4f}, device_wait_s "
         f"{out['device_wait_s']:.4f}, oracle_read_pct "
-        f"{out['oracle_read_pct']}, upload_mb {out['upload_mb']:.3f}  "
-        f"[{card}]")
+        f"{out['oracle_read_pct']}, upload_mb {out['upload_mb']:.3f}, "
+        f"coverage_reads {out['coverage_reads']}, coverage_counted "
+        f"{out['coverage_counted']}  [{card}]")
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         name = f"span_tree_{args.cell or 'cli'}_{args.seed}.txt"

@@ -39,12 +39,13 @@ DIFFERS = {
     "pipeline.py": (
         ("make_backend_factory", "run_files", "Pipeline.run",
          "Pipeline._search_stage", "Pipeline._process_window",
-         "Pipeline._window_reads_bam"),
+         "Pipeline._window_reads_bam", "Pipeline._update_ref_coverage"),
         "the port's entry points build torch backends; the reference's "
         "switch over its own backend names stays with it; the port's pass "
         "runs under a root span with spans for set-up, the reference-read "
         "coverage, the bookkeeping of a window, and update_bd and "
-        "apply_bd_delta apart"),
+        "apply_bd_delta apart; reference reads as arrays, coverage by a "
+        "difference array"),
     "profiling.py": (
         ("Timer",),
         "the port's Timer records spans with parents and threads, opens "
@@ -52,7 +53,9 @@ DIFFERS = {
     "bam.py": (
         ("BamReader.collect_sr",),
         "the port times the native decode and the building of the read "
-        "objects as two spans"),
+        "objects as two spans (the objects in BamReader._sr_objects, "
+        "which the reference lacks); reference reads as arrays, coverage "
+        "by a difference array"),
     "dd.py": (("run_dd_files",),
               "-q's entry is pipeline.run_dd_files, on the port's factory"),
     "assembly.py": (("run_assembly_files",),
