@@ -184,8 +184,8 @@ failure exits non-zero:
    device memory logged, ``scene4_bed`` (-j/-J: chr1 as two regions, chr3)
    and ``scene4_c`` (one -c region) through the bench's run on the card,
    each held to the reference's digests (testing/scene4_digests.json) by
-   the bench's gate (the windows, K4 rows, the reads the interchromosomal
-   route sent to the oracle on ``scene4``); ``_INT`` not empty on
+   the bench's gate (the windows, K4 rows, the reads the cross-chromosome
+   route took on ``scene4``); ``_INT`` not empty on
    ``scene4``, ``_INT_final`` empty on the others; at the start of each
    region's window loop ``torch.cuda.memory_allocated()`` printed, no
    earlier region's backend alive and the memory no more than one
@@ -752,7 +752,8 @@ def main() -> int:
                                                      BUCKET_ROWS, KINDS,
                                                      W_BUCKETS, branch_case,
                                                      bucket_case)
-    from pindel_tpu_torch.pipeline import g_fallback, g_timer, run_files
+    from pindel_tpu_torch.pipeline import (g_fallback, g_timer, g_xchrom,
+                                          run_files)
     from pindel_tpu_torch.testing.scenes import (BAM_SCENES, SCENE1,
                                                  SCENE1_FLAGS, SCENE2,
                                                  SCENE4_DIGESTS,
@@ -1476,9 +1477,17 @@ def main() -> int:
                 elif backend == "numpy" and (fused_n or shard_n):
                     fail(f"{label}: the host oracle's run launched "
                          f"{fused_n} fused and {shard_n} shard kernels")
-                if scene.startswith("bam_int") and engine_fused.FAR_WIN_ROWS:
+                # the interchromosomal call's windows: K4 on the partner
+                # backend under fused, the oracle under the others
+                want = ((g_xchrom.reads, 0) if backend == "fused"
+                        else (0, g_xchrom.reads))
+                if scene.startswith("bam_int") and (
+                        (engine_fused.FAR_WIN_ROWS > 0)
+                        != (backend == "fused")
+                        or (g_xchrom.device, g_xchrom.oracle) != want):
                     fail(f"{label}: the interchromosomal call's windows sent "
-                         f"{engine_fused.FAR_WIN_ROWS} rows to K4")
+                         f"{engine_fused.FAR_WIN_ROWS} rows to K4, "
+                         f"{g_xchrom.oracle} reads to the oracle")
                 log(f"{label} {list(spec.flags)}: {len(port)} reports "
                     f"byte-identical to numpy, launches {launch_counts()}, "
                     f"shard kernel {shard_n}, _far_win_kernel rows "
@@ -2526,9 +2535,10 @@ def main() -> int:
             f"{c4['far_win_launches']} for {k4_calls4} K4 calls), "
             f"_far_win_kernel rows {c4['far_win_rows']}, legacy rows "
             f"{c4['legacy_rows']}, shard kernel launches "
-            f"{c4['shard_launches']}, reads sent to the oracle across "
-            f"chromosomes {c4['oracle_reads']} (at most "
-            f"{paths4['ctx_reads']}), peak card memory "
+            f"{c4['shard_launches']}, reads across chromosomes "
+            f"{c4['oracle_reads']} (at most {paths4['ctx_reads']}; K4 on "
+            f"a partner backend {c4['xchrom_device']}, oracle "
+            f"{c4['xchrom_oracle']}), peak card memory "
             f"{c4['peak_mib']:.1f} MiB  [{card}]")
         for w in c4["by_window"]:
             log(f"  scene 4 window {w['index']} [{w['start']}, {w['end']}):"
@@ -2567,7 +2577,7 @@ def main() -> int:
                 f"digests, windows {c['windows']}, launches "
                 f"{launch_counts()}, _far_win_kernel rows "
                 f"{c['far_win_rows']}, legacy rows {c['legacy_rows']}, "
-                f"oracle reads across chromosomes {c['oracle_reads']}, "
+                f"reads across chromosomes {c['oracle_reads']}, "
                 f"peak card memory {c['peak_mib']:.1f} MiB  [{card}]")
             check_regions(name, rows, regions4[name])
             scene4_paths[name] = dict(run_counts(c), wall=r["wall"],

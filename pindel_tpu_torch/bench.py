@@ -29,9 +29,10 @@ the fused kernels': close, far and far_win) must be equal from run to run,
 and on a card they must have launched and, on the BreakDancer scenes,
 ``_far_win_kernel`` (K4) must have searched rows, through ``pt_far_win``.
 Scenes 3 and 4 must also span their three and five windows, and on scene
-4 the interchromosomal route (``Searcher._far_round``) must have sent
-reads to the NumPy oracle (``measure.oracle_reads``), no more than the
-reads anchored near a breakpoint of the scene's CTX calls.  A failed
+4 the cross-chromosome route (``Searcher._far_round``) must have taken
+reads (``measure.oracle_reads``: K4 on a partner backend in a fused
+run, the NumPy oracle otherwise), no more than the reads anchored near a
+breakpoint of the scene's CTX calls.  A failed
 gate prints ``"value": 0.0`` and ``"correct": false`` and exits 1,
 whichever scene failed.  There is no ``vs_baseline``: ``bench.py`` times
 the reference pindel compiled from a C++ checkout that is not part of this
@@ -47,14 +48,16 @@ median of the walls), ``fallback_ratio``; for every other scene
 windows over the chromosomes' bases; the window loop also visits an empty
 window at a chromosome's end when its length is a multiple of the
 window, as the reference's does), ``sceneN_far_win_rows`` (K4's rows) and
-``sceneN_oracle_reads`` (reads sent to the oracle across chromosomes);
+``sceneN_oracle_reads`` (reads the cross-chromosome route took);
 ``correct``, ``layers`` (each scene's
 coarse timer phases of its last timed run; they overlap, so they are
 phases, not shares of the wall), ``launches`` (the search kernels'
 launches in each scene's last run), ``counters`` (each scene's last run:
 search kernel launches, the scan's and each fused kernel's apart, windows
 visited and with bases, ``_far_win_kernel`` rows, legacy per-lane rows,
-reads sent to the oracle across chromosomes, shard kernel launches, peak
+reads the cross-chromosome route took and of them those K4 searched on a
+partner backend and those the oracle searched (``profiling.g_xchrom``),
+shard kernel launches, peak
 card memory in MiB, and per window its reads and the seconds at which it
 was read in, staged and reported), ``device`` (the card's name and power limit), and the set-up
 times (``build_s``, ``scene_build_s``, ``first_use_s``).
@@ -78,7 +81,7 @@ from pindel_tpu_torch.ops import (engine_fused, engine_jax, fused_cuda,
                                   scan_cuda, sharded_search_cuda)
 from pindel_tpu_torch.parallel.multihost import build_libraries
 from pindel_tpu_torch.pipeline import resolve_device
-from pindel_tpu_torch.profiling import g_fallback, g_timer
+from pindel_tpu_torch.profiling import g_fallback, g_timer, g_xchrom
 from pindel_tpu_torch.testing.scenes import (SCENE1, SCENE1_DIGESTS,
                                              SCENE1_FLAGS, SCENE2,
                                              SCENE2_DIGESTS, SCENE3,
@@ -101,8 +104,8 @@ class Scene:
     reports, by suffix, whether a kernel run must send rows through
     ``_far_win_kernel`` (BreakDancer calls), the windows over its
     chromosomes' bases it must span, and the most reads the
-    interchromosomal route may send to the oracle, which must send at
-    least one (None: neither checked)."""
+    cross-chromosome route may take, which must take at least one (None:
+    neither checked)."""
 
     name: str
     unit: str
@@ -200,6 +203,8 @@ def run(scene: Scene, prefix: str, dev) -> dict:
         far_win_rows=engine_fused.FAR_WIN_ROWS,
         legacy_rows=engine_jax.LEGACY_ROWS,
         oracle_reads=oracle["reads"],
+        xchrom_device=g_xchrom.device,
+        xchrom_oracle=g_xchrom.oracle,
         shard_launches=sharded_search_cuda.LAUNCHES,
         peak_mib=(torch.cuda.max_memory_allocated(dev) / 2 ** 20
                   if dev.type == "cuda" else None),
@@ -239,7 +244,7 @@ def problems(scene: Scene, runs: List[dict], kernel: bool) -> List[str]:
         if scene.oracle_reads is not None and not (
                 0 < c.get("oracle_reads", 0) <= scene.oracle_reads):
             out.append(f"{scene.name} run {i}: {c.get('oracle_reads')} "
-                       "reads sent to the oracle across chromosomes, not "
+                       "reads taken across chromosomes, not "
                        f"1 to {scene.oracle_reads}")
     launches = {r["launches"] for r in runs}
     if len(launches) != 1:
@@ -314,8 +319,10 @@ def main(argv=None) -> int:
                 f"{c['launches']}, fallback {timed[-1]['fallback']}, "
                 f"windows {c['windows']} (visited {c['windows_visited']}), "
                 f"_far_win_kernel rows {c['far_win_rows']}, legacy rows "
-                f"{c['legacy_rows']}, oracle reads across chromosomes "
-                f"{c['oracle_reads']}, shard launches {c['shard_launches']}, "
+                f"{c['legacy_rows']}, reads across chromosomes "
+                f"{c['oracle_reads']} (K4 {c['xchrom_device']}, oracle "
+                f"{c['xchrom_oracle']}), shard launches "
+                f"{c['shard_launches']}, "
                 f"peak card memory {c['peak_mib']} MiB  [{card}]")
             for w in c["by_window"]:
                 log(f"  window {w['index']} [{w['start']}, {w['end']}): "

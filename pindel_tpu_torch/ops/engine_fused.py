@@ -32,7 +32,10 @@ several devices.  Uniform chains are rebuilt exactly on the host; the rest
 go back to the Searcher, which reruns them on the NumPy oracle
 (``search.py``), except in ``run``, whose non-uniform rows and
 non-canonical lanes take the legacy per-lane backend (``engine_jax.py``) on
-the same device.
+the same device.  A backend made with a ``partner_factory`` hands the
+Searcher the backends of other chromosomes (``partner``): the reads whose
+evidence windows lie on one of them take ``run`` there, K4 against that
+chromosome's state.
 """
 from __future__ import annotations
 
@@ -701,6 +704,19 @@ class _Download:
         return self._host.numpy()
 
 
+def canonical_lanes(lanes, chrom_name: str) -> bool:
+    """Whether one read's far-end ``lanes`` take ``_far_win_kernel`` on
+    ``chrom_name``: one (forward, backward) lane pair over a single window
+    of that chromosome (``far_end_lanes`` in search.py over one region),
+    with a query the payload's 10-bit threshold field holds."""
+    return (len(lanes) == 2 and lanes[0].forward and not lanes[1].forward
+            and lanes[0].chr_name == chrom_name
+            and lanes[1].chr_name == chrom_name
+            and lanes[0].start == lanes[1].start
+            and lanes[0].end == lanes[1].end
+            and lanes[0].query.shape[0] <= 0x3ff)
+
+
 class TorchFusedBackend:
     """Per-chromosome fused search backend on a torch device.
 
@@ -719,7 +735,8 @@ class TorchFusedBackend:
     dp = 1      # devices a launch's rows are split over
 
     def __init__(self, settings, maxmm: np.ndarray, chrom_codes: np.ndarray,
-                 chrom_name: str = None, device="cuda"):
+                 chrom_name: str = None, device="cuda",
+                 partner_factory=None):
         self.settings = settings
         self.mpm = settings.min_perfect_match_around_bp
         self.rate = settings.max_allowed_mismatch_rate
@@ -733,6 +750,24 @@ class TorchFusedBackend:
         self._legacy = TorchLaneBackend(settings, self.state, chrom_name)
         self._pool = None
         self._pool_tried = False
+        # chrom -> the backend of another chromosome (``partner``)
+        self.partner_factory = partner_factory
+        self._partners = {}
+
+    def partner(self, chrom, lanes) -> Optional["TorchFusedBackend"]:
+        """The backend of ``chrom``, another chromosome than this one's, for
+        a read whose far-end ``lanes`` lie on it in ``run``'s canonical
+        shape: made by ``partner_factory`` at the first such read and kept
+        until this backend is freed, so a region uploads each chromosome
+        its evidence windows reach once.  None without a factory or for
+        another shape (the Searcher then takes the NumPy oracle)."""
+        if self.partner_factory is None or not canonical_lanes(
+                lanes, chrom.name):
+            return None
+        backend = self._partners.get(chrom.name)
+        if backend is None:
+            backend = self._partners[chrom.name] = self.partner_factory(chrom)
+        return backend
 
     def _decode_pool(self):
         """Worker pool for host-side chain decode (gated on -T>1): the
@@ -746,26 +781,19 @@ class TorchFusedBackend:
         return self._pool
 
     def run(self, batch_lanes, bp_start, max_snps, tsec_minus):
-        """The legacy per-lane API (BreakDancer/RP evidence windows, the
-        cross-chromosome fallback plumbing).  The canonical evidence-window
-        shape - one (forward, backward) lane pair over a single
-        same-chromosome window per read (far_end_lanes in search.py) -
-        takes ``_far_win_kernel``; anything else (multi-window clusters,
-        windows too wide for the spacer, non-uniform chains) takes the
-        legacy per-lane backend on the same device."""
+        """The legacy per-lane API (BreakDancer/RP evidence windows; on a
+        ``partner`` backend, another region's reads whose windows lie on
+        this chromosome).  The canonical evidence-window shape
+        (``canonical_lanes``) takes ``_far_win_kernel``; anything else
+        (multi-window clusters, windows too wide for the spacer,
+        non-uniform chains) takes the legacy per-lane backend on the same
+        device."""
         global FAR_WIN_ROWS
         n = len(batch_lanes)
         if n == 0:
             return []
-        canonical = all(
-            len(lanes) == 2 and lanes[0].forward and not lanes[1].forward
-            and lanes[0].chr_name == self.chrom_name
-            and lanes[1].chr_name == self.chrom_name
-            and lanes[0].start == lanes[1].start
-            and lanes[0].end == lanes[1].end
-            and lanes[0].query.shape[0] <= 0x3ff
-            for lanes in batch_lanes)
-        if not canonical:
+        if not all(canonical_lanes(lanes, self.chrom_name)
+                   for lanes in batch_lanes):
             return self._legacy.run(batch_lanes, bp_start, max_snps,
                                     tsec_minus)
         if n > self.CHUNK:

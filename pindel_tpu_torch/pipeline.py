@@ -23,6 +23,7 @@ through a closed switch over its own backend names.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, List, Optional, Sequence, TextIO
 
 import torch
@@ -45,7 +46,8 @@ from pindel_tpu_torch.report.reporter import (
     sort_and_report_interchromosomal_events, sort_output_d, sort_output_di,
     sort_output_li, sort_output_rest, sort_output_si)
 from pindel_tpu_torch.profiling import (ROOT, g_coverage, g_fallback,
-                                        g_log, g_read_stats, g_timer)
+                                        g_log, g_read_stats, g_timer,
+                                        g_xchrom)
 from pindel_tpu_torch.search import Searcher
 
 AROUND_REGION_BUFFER = 10_000   # pindel.cpp:127
@@ -247,10 +249,17 @@ class Pipeline:
 
     def create_output_files(self) -> None:
         """TestFileForOutput truncation at init (pindel.cpp:932-938) plus
-        the unconditionally-created _RP / _INT_final (pindel.cpp:1767,1538)."""
+        the unconditionally-created _RP / _INT_final (pindel.cpp:1767,1538).
+        ``_INT`` is appended to window by window and merged into
+        ``_INT_final`` at the end, so an earlier run's ``_INT`` under the
+        same prefix is removed here: a rerun reports its own calls once,
+        and, as on a fresh prefix, ``_INT`` exists only once a window
+        reports an interchromosomal read."""
         for suffix in ("SI", "D", "TD", "INV", "LI", "BP", "CloseEndMapped",
                        "RP", "INT_final"):
             open(self.settings.out(suffix), "w").close()
+        if os.path.exists(self.settings.out("INT")):
+            os.remove(self.settings.out("INT"))
 
     def _out(self, suffix: str) -> TextIO:
         if suffix not in self._outputs:
@@ -852,7 +861,10 @@ def make_backend_factory(settings: Settings, device, backend: str = "fused",
     TorchLaneBackend (K8) for every search on ``device`` (the reference's
     name; nothing imports jax); ``fused`` is TorchFusedBackend on
     ``device``; ``mesh`` is TorchMeshBackend over ``devices``, by default
-    every visible card (or ``device`` itself when it is the CPU)."""
+    every visible card (or ``device`` itself when it is the CPU).  A
+    ``fused`` backend makes, through this factory, the backends of the
+    other chromosomes its evidence windows reach (K4 on the card for the
+    cross-chromosome route); they go with it."""
     if backend == "numpy":
         return None
     if backend not in BACKENDS:
@@ -873,7 +885,7 @@ def make_backend_factory(settings: Settings, device, backend: str = "fused",
         def factory(chrom):
             return TorchFusedBackend(settings, settings.max_mismatch(),
                                      chrom.seq, chrom_name=chrom.name,
-                                     device=dev)
+                                     device=dev, partner_factory=factory)
     else:
         from pindel_tpu_torch.parallel.mesh_fused import (TorchMeshBackend,
                                                           make_device_list)
@@ -923,6 +935,7 @@ def run_files(reference_fa: str, pindel_file: Optional[str],
     g_timer.reset(record=s.profile)
     g_fallback.reset()
     g_coverage.reset()
+    g_xchrom.reset()
     try:
         with g_timer.phase(ROOT):
             _run_pass(s, reference_fa, pindel_file, bam_config,
@@ -932,6 +945,7 @@ def run_files(reference_fa: str, pindel_file: Optional[str],
         g_timer.report(stream=g_log, coarse_only=not s.profile)
         if s.profile:
             g_log.info("  " + g_coverage.show())
+            g_log.info("  " + g_xchrom.show())
         g_log.close()
     return s
 

@@ -392,3 +392,35 @@ class CoverageStats:
 
 
 g_coverage = CoverageStats()
+
+
+class CrossChromStats:
+    """Reads of a pass that the cross-chromosome route takes
+    (``Searcher._far_round``: far-end lanes on another chromosome than the
+    device backend's): ``reads`` in all, ``device`` searched by K4 against
+    that chromosome's partner backend (``TorchFusedBackend.partner``),
+    ``oracle`` by the NumPy oracle (lanes over two chromosomes or in
+    another shape than K4's, or a backend without partners: jax, mesh).
+    ``g_fallback`` does not count them."""
+
+    def __init__(self) -> None:
+        self.reads = 0
+        self.device = 0
+        self.oracle = 0
+
+    def add(self, device: int, oracle: int) -> None:
+        self.reads += device + oracle
+        self.device += device
+        self.oracle += oracle
+
+    def reset(self) -> None:
+        self.reads = 0
+        self.device = 0
+        self.oracle = 0
+
+    def show(self) -> str:
+        return ("cross-chromosome reads %d, on the device %d, on the "
+                "oracle %d" % (self.reads, self.device, self.oracle))
+
+
+g_xchrom = CrossChromStats()

@@ -505,9 +505,13 @@ class Searcher:
     def _far_round(self, reads: List[SplitRead],
                    regions: List[List[Tuple[Chromosome, int, int]]],
                    backend=None) -> None:
-        """One batched far-end launch.  Reads whose candidate regions span
-        a chromosome the device backend is not loaded with fall back to
-        the exact-semantics NumPy backend."""
+        """One batched far-end launch.  Reads whose candidate regions lie
+        on a chromosome the device backend is not loaded with take the
+        cross-chromosome route, under its own span: those whose lanes lie
+        on one other chromosome in the shape the backend's ``partner``
+        takes run on that chromosome's partner backend, the rest on the
+        exact-semantics NumPy backend; ``g_xchrom`` counts both."""
+        from pindel_tpu_torch.profiling import g_timer, g_xchrom
         if backend is None:
             backend = self.backend
         batch_lanes = [far_end_lanes(r, regs)
@@ -523,21 +527,36 @@ class Searcher:
             else:
                 main_idx.append(i)
         results: List = [None] * len(reads)
-        if main_idx:
-            out = backend.run(
-                [batch_lanes[i] for i in main_idx],
+
+        def search(on, idx):
+            out = on.run(
+                [batch_lanes[i] for i in idx],
                 10,  # far-end min length, farend_searcher.cpp:90
-                [budgets[i][0] for i in main_idx],
-                [budgets[i][1] for i in main_idx])
-            for i, res in zip(main_idx, out):
+                [budgets[i][0] for i in idx],
+                [budgets[i][1] for i in idx])
+            for i, res in zip(idx, out):
                 results[i] = res
+
+        if main_idx:
+            search(backend, main_idx)
         if fallback_idx:
-            out = self._oracle().run(
-                [batch_lanes[i] for i in fallback_idx], 10,
-                [budgets[i][0] for i in fallback_idx],
-                [budgets[i][1] for i in fallback_idx])
-            for i, res in zip(fallback_idx, out):
-                results[i] = res
+            with g_timer.phase("search: cross-chromosome"):
+                partner = getattr(backend, "partner", None)
+                groups = {}           # partner backend -> its reads
+                oracle_idx: List[int] = []
+                for i in fallback_idx:
+                    on = (partner(regions[i][0][0], batch_lanes[i])
+                          if partner else None)
+                    if on is None:
+                        oracle_idx.append(i)
+                    else:
+                        groups.setdefault(on, []).append(i)
+                for on, idx in groups.items():
+                    search(on, idx)
+                if oracle_idx:
+                    search(self._oracle(), oracle_idx)
+                g_xchrom.add(len(fallback_idx) - len(oracle_idx),
+                             len(oracle_idx))
         for r, (ups, full_mm) in zip(reads, results):
             # NewUPFarIsBetter, farend_searcher.cpp:30-44
             new_max = int(ups.length[len(ups) - 1]) if ups else 0

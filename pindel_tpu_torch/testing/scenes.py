@@ -480,8 +480,9 @@ def build_td_depth(d: str) -> Dict[str, str]:
 # (tests/test_interchromosomal.py, test_regions.py, test_depth_filter.py,
 # test_cli_flags.py), and the backends each runs through on the CPU and on
 # the card.  The interchromosomal call's windows lie on the other
-# chromosome, so the search sends its reads to the NumPy oracle
-# (search.py:_far_round), never to _far_win_kernel
+# chromosome, so the search sends its reads down the cross-chromosome
+# route (search.py:_far_round): _far_win_kernel on the other chromosome's
+# partner backend under --backend fused, the NumPy oracle otherwise
 SUITE_SCENES = {
     "bam_int_I": BamScene(build_interchrom, ("-b", "{bd}", "-I")),
     "bam_int": BamScene(build_interchrom, ("-b", "{bd}")),

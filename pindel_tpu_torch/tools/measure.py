@@ -400,12 +400,13 @@ def window_log():
 @contextlib.contextmanager
 def oracle_reads():
     """Counts, over the runs inside the context, the reads whose far-end
-    lanes ``Searcher._far_round`` sends to the NumPy oracle because one of
-    them lies on another chromosome than the device backend's (search.py:
-    the interchromosomal route, which adds nothing to ``g_fallback``).
-    The test is ``_far_round``'s own, stated over the reads' regions (a
-    read's lanes carry its regions' chromosome names); the copied
-    ``search.py`` is left as it is.  Yields a dict whose ``reads`` grows."""
+    lanes ``Searcher._far_round`` sends down the cross-chromosome route
+    because one of them lies on another chromosome than the device
+    backend's: K4 on a partner backend (the fused backend in one process)
+    or the NumPy oracle (``profiling.g_xchrom`` splits them; ``g_fallback``
+    counts neither).  The test is ``_far_round``'s own, stated over the
+    reads' regions (a read's lanes carry its regions' chromosome names).
+    Yields a dict whose ``reads`` grows."""
     from pindel_tpu_torch.search import Searcher
     real = Searcher._far_round
     count = {"reads": 0}
@@ -429,15 +430,25 @@ def oracle_reads():
 def region_log():
     """Records each BED region of the runs inside the context when its
     window loop starts: its chromosome, the bytes of its backend's device
-    state, the backend's card's allocated memory (None on the CPU) and how
-    many of the backends made so far are alive (the record holds them by
-    weak reference, so a region's backend that outlives it shows here).
-    Yields the list it fills; a run without a device backend (``numpy``)
-    records its regions with None for the backend's values."""
+    state, the backend's card's allocated memory (None on the CPU), how
+    many of the backends made so far are alive, and how many chromosome
+    states were made so far (``states_made``) and are alive
+    (``states_alive``: the region backends' and the partner backends'
+    of the cross-chromosome route).  The record holds backends and states
+    by weak reference, so one that outlives its region shows here.  Yields
+    the list it fills; a run without a device backend (``numpy``) records
+    its regions with None for the backend's values."""
     from pindel_tpu_torch import pipeline
-    rows, made = [], []
+    from pindel_tpu_torch.ops import engine_fused
+    rows, made, states = [], [], []
     real_factory = pipeline.make_backend_factory
     real_window = pipeline.LoopingSearchWindow
+    real_state = engine_fused.device_state_from_numpy
+
+    def device_state_from_numpy(*args, **kw):
+        st = real_state(*args, **kw)
+        states.append(weakref.ref(st))
+        return st
 
     def make_backend_factory(*args, **kw):
         factory = real_factory(*args, **kw)
@@ -462,12 +473,16 @@ def region_log():
                 allocated=(torch.cuda.memory_allocated(dev)
                            if dev is not None and dev.type == "cuda"
                            else None),
-                alive=sum(ref() is not None for ref, _d, _s in made)))
+                alive=sum(ref() is not None for ref, _d, _s in made),
+                states_made=len(states),
+                states_alive=sum(ref() is not None for ref in states)))
 
     pipeline.make_backend_factory = make_backend_factory
     pipeline.LoopingSearchWindow = Window
+    engine_fused.device_state_from_numpy = device_state_from_numpy
     try:
         yield rows
     finally:
         pipeline.make_backend_factory = real_factory
         pipeline.LoopingSearchWindow = real_window
+        engine_fused.device_state_from_numpy = real_state

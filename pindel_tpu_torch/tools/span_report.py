@@ -16,9 +16,11 @@ profiled pass's span tree (total and self seconds per path of span names,
 ``Timer.report``), its root's self share on the main thread, the largest
 distance between a span mapped onto the profiler's clock and its range, and
 the sums the benchmark's span and counter readers take (``coverage_s``,
-``entry_s``, ``device_wait_s``, ``oracle_read_pct``, ``upload_mb``) and the
-pass's reference reads (``coverage_reads``, ``coverage_counted``: handed to
-the coverage update, and counted there) go to standard error; the last line
+``entry_s``, ``device_wait_s``, ``oracle_read_pct``, ``upload_mb``,
+``xchrom_s``, ``xchrom_oracle_reads``, ``interchrom_s``), the pass's
+reference reads (``coverage_reads``, ``coverage_counted``: handed to the
+coverage update, and counted there) and the reads the cross-chromosome
+route took (``xchrom_reads``) go to standard error; the last line
 of standard output is one JSON object with them, every pass's wall by mode,
 and ``device`` (the card's name and power limit).  ``--out DIR`` also writes
 the tree there.
@@ -38,7 +40,7 @@ import torch
 from pindel_tpu_torch.__main__ import main as port_main
 from pindel_tpu_torch.ops import fused_cuda
 from pindel_tpu_torch.profiling import (PREFIX, ROOT, g_coverage,
-                                        g_fallback, g_timer)
+                                        g_fallback, g_timer, g_xchrom)
 from pindel_tpu_torch.tools import measure
 
 ROOT_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -157,6 +159,7 @@ def main(argv=None) -> int:
                                           g_fallback.total),
                                 coverage=(g_coverage.reads,
                                           g_coverage.counted),
+                                xchrom=(g_xchrom.reads, g_xchrom.oracle),
                                 upload=fused_cuda.UPLOAD_BYTES)
     log(last["report"])
     root = [row for row in last["tree"] if row[0] == 0 and row[1] == ROOT][0]
@@ -172,6 +175,10 @@ def main(argv=None) -> int:
         device_wait_s=sum(items.get(n, 0.0) for n in WAITS),
         oracle_read_pct=100.0 * fb / total if total else None,
         upload_mb=last["upload"] / 1e6,
+        xchrom_s=items.get("search: cross-chromosome"),
+        xchrom_reads=last["xchrom"][0],
+        xchrom_oracle_reads=last["xchrom"][1],
+        interchrom_s=items.get("window: interchromosomal"),
         coverage_reads=last["coverage"][0],
         coverage_counted=last["coverage"][1],
         tree=[list(row) for row in last["tree"]], device=card)
@@ -185,8 +192,10 @@ def main(argv=None) -> int:
         f"entry_s {out['entry_s']:.4f}, device_wait_s "
         f"{out['device_wait_s']:.4f}, oracle_read_pct "
         f"{out['oracle_read_pct']}, upload_mb {out['upload_mb']:.3f}, "
-        f"coverage_reads {out['coverage_reads']}, coverage_counted "
-        f"{out['coverage_counted']}  [{card}]")
+        f"xchrom_s {out['xchrom_s']}, xchrom_reads {out['xchrom_reads']}, "
+        f"xchrom_oracle_reads {out['xchrom_oracle_reads']}, interchrom_s "
+        f"{out['interchrom_s']}, coverage_reads {out['coverage_reads']}, "
+        f"coverage_counted {out['coverage_counted']}  [{card}]")
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         name = f"span_tree_{args.cell or 'cli'}_{args.seed}.txt"

@@ -103,9 +103,9 @@ def cut(tmp_path_factory):
 def test_port_matches_reference(cut, name):
     """The port's reports on each run equal the reference's, the bench's
     gate passes, and the run spans its windows with evidence windows
-    through K4; ``-I`` fills ``_INT`` from the reads the oracle searched
-    across chromosomes, and without it ``_INT_final`` is written and
-    empty."""
+    through K4; ``-I`` fills ``_INT`` from the reads the cross-chromosome
+    route searched, all of them by K4 on a partner backend (none on the
+    oracle), and without it ``_INT_final`` is written and empty."""
     r = cut["runs"][name]
     assert scenes.digests(r["got"]) == r["scene"].want
     assert not bench.problems(r["scene"], [r["run"]], kernel=False)
@@ -118,6 +118,8 @@ def test_port_matches_reference(cut, name):
         assert b"Anchor + chr2" in r["got"]["INT"]
         assert b"chr1\tpos" in r["got"]["INT_final"]
         assert 0 < c["oracle_reads"] <= int(cut["paths"]["ctx_reads"])
+        assert c["xchrom_device"] == c["oracle_reads"]
+        assert c["xchrom_oracle"] == 0
         # chrE's window is visited and reads nothing
         empty = [w["reads"] for w in c["by_window"]
                  if (w["start"], w["end"]) == (0, 20_000)]
@@ -130,12 +132,17 @@ def test_port_matches_reference(cut, name):
 def test_region_backends_freed(cut, name):
     """A backend per BED region, and none outlives its region: when a
     region's window loop starts, the earlier regions' backends (their
-    chromosome on the device) are gone."""
+    chromosome on the device) are gone, and so are the partner backends
+    they made for the cross-chromosome route (``-c ALL -I`` made some
+    before its last region)."""
     rows = cut["runs"][name]["regions"]
     assert [r["chrom"] for r in rows] == CUT_REGIONS[name]
     assert [r["alive"] for r in rows] == [1] * len(rows)
+    assert [r["states_alive"] for r in rows] == [1] * len(rows)
     assert all(r["state_bytes"] > 0 and r["allocated"] is None
                for r in rows)
+    if name == "scene4":
+        assert rows[-1]["states_made"] > len(rows)
 
 
 def test_build_scene4_plan(tmp_path):

@@ -25,7 +25,7 @@ PORT_FILES = sorted(
 # sources, copied byte for byte
 COPIED = ["config.py", "dna.py", "genome.py", "reads.py",
           "textindex.py", "cxxsort.py", "regions.py", "depth.py",
-          "ops/search_np.py", "search.py", "events/canonical.py",
+          "ops/search_np.py", "events/canonical.py",
           "events/detect.py", "report/reporter.py", "bddata.py",
           "genotyping.py", "parallel/payload.py", "pindel2vcf.py",
           "pindel2vcf4tcga.py", "sam2pindel.py", "bam2pindel.py",
@@ -39,13 +39,22 @@ DIFFERS = {
     "pipeline.py": (
         ("make_backend_factory", "run_files", "Pipeline.run",
          "Pipeline._search_stage", "Pipeline._process_window",
-         "Pipeline._window_reads_bam", "Pipeline._update_ref_coverage"),
+         "Pipeline._window_reads_bam", "Pipeline._update_ref_coverage",
+         "Pipeline.create_output_files"),
         "the port's entry points build torch backends; the reference's "
         "switch over its own backend names stays with it; the port's pass "
         "runs under a root span with spans for set-up, the reference-read "
         "coverage, the bookkeeping of a window, and update_bd and "
         "apply_bd_delta apart; reference reads as arrays, coverage by a "
-        "difference array"),
+        "difference array; a fused backend makes partner backends for "
+        "the cross-chromosome route; an earlier run's _INT is removed at "
+        "start, so a rerun under one prefix reports its calls once"),
+    "search.py": (
+        ("Searcher._far_round",),
+        "reads whose far-end lanes lie on another chromosome take the "
+        "cross-chromosome route under its own span and counter: K4 on the "
+        "partner backend of that chromosome where the device backend has "
+        "one, the NumPy oracle for the rest"),
     "profiling.py": (
         ("Timer",),
         "the port's Timer records spans with parents and threads, opens "

@@ -22,6 +22,7 @@ import torch
 from pindel_tpu.__main__ import main as reference_main
 from pindel_tpu_torch.__main__ import main as port_main
 from pindel_tpu_torch.ops import engine_fused
+from pindel_tpu_torch.profiling import g_xchrom
 from pindel_tpu_torch.testing.bamwriter import pair, write_bam
 from pindel_tpu_torch.testing.scenes import (SUITE_BACKENDS, SUITE_SCENES,
                                              bam_argv, load_golden,
@@ -78,9 +79,19 @@ def test_suite_scene_matches_golden(tmp_path, built, name, backend):
         assert got[suffix] == data, f"_{suffix} differs"
     scene_checks(name, got)
     if name.startswith("bam_int"):
-        # the call's windows lie on the other chromosome: the search sends
-        # its reads to the oracle, none to _far_win_kernel
-        assert engine_fused.FAR_WIN_ROWS == 0
+        # the call's windows lie on the other chromosome: the fused
+        # backend searches its reads with _far_win_kernel on that
+        # chromosome's partner backend; mesh and jax send them to the
+        # oracle, and numpy searches everything there
+        if backend == "fused":
+            assert engine_fused.FAR_WIN_ROWS > 0
+            assert g_xchrom.device == g_xchrom.reads > 0
+            assert g_xchrom.oracle == 0
+        else:
+            assert engine_fused.FAR_WIN_ROWS == 0
+            assert g_xchrom.device == 0
+            assert g_xchrom.oracle == g_xchrom.reads
+            assert (g_xchrom.reads > 0) == (backend != "numpy")
 
 
 @pytest.mark.parametrize("name", list(SUITE_SCENES))

@@ -41,6 +41,7 @@ CATALOGUE = {
     "window: bookkeeping", "window: close-end report",
     "window: interchromosomal",
     "Matching close ends", "search: consume close", "search: finalize close",
+    "search: cross-chromosome",
     "fused: pack close", "fused: dispatch close", "fused: close wait",
     "fused: decode close", "fused: close decode join", "fused: pack far",
     "fused: dispatch far",
