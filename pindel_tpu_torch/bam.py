@@ -17,7 +17,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from pindel_tpu_torch.profiling import g_timer
+from pindel_tpu_torch.profiling import g_bam, g_timer
 from pindel_tpu_torch.reads import SplitRead
 
 
@@ -62,6 +62,30 @@ class RefReads:
         for p, q, n in zip(self.pos.tolist(), self.mq.tolist(),
                            self.length.tolist()):
             yield RefRead(p, q, n, self.tag)
+
+
+@dataclasses.dataclass
+class DiscordantPairs:
+    """One BAM entry's discordant read pairs over a window, as the native
+    RP walk (``ptbam_collect_rp``) finds them, in file order: the read's
+    ``pos`` (int64), its mate's ``mpos`` (int64) and reference id ``mtid``
+    (int32), the read's ``length`` (int32) and ``strands`` (int8; bit 0
+    the read reversed, bit 1 its mate), one element a pair."""
+
+    pos: np.ndarray
+    mpos: np.ndarray
+    mtid: np.ndarray
+    length: np.ndarray
+    strands: np.ndarray
+
+    @classmethod
+    def empty(cls) -> "DiscordantPairs":
+        return cls(np.zeros(0, np.int64), np.zeros(0, np.int64),
+                   np.zeros(0, np.int32), np.zeros(0, np.int32),
+                   np.zeros(0, np.int8))
+
+    def __len__(self) -> int:
+        return len(self.pos)
 
 
 def read_bam_config(path: str) -> List[BamConfigEntry]:
@@ -174,6 +198,11 @@ class BamReader:
         self.ref_lens = [self._lib.ptbam_ref_len(self._h, i)
                          for i in range(len(self.ref_names))]
         self.n_records = self._lib.ptbam_n_records(self._h)
+        # the range the native window cache decoded last (g_bam's loads)
+        self._cached = None
+        g_bam.opened(self.n_records)
+        if not streamed:
+            g_bam.loaded(self.n_records)
 
     def close(self):
         if self._h is not None:
@@ -198,11 +227,36 @@ class BamReader:
             return [], RefReads.empty(tag)
         tid = self.ref_names.index(chrom_name)
         with g_timer.phase("intake: bam decode"):
-            n = self._lib.ptbam_collect_sr(
-                self._h, tid, start, end, min_anchor_quality, nm,
-                max_mismatch_rate, biol_size)
+            n = self._query(self._lib.ptbam_collect_sr, tid, start, end,
+                            min_anchor_quality, nm, max_mismatch_rate,
+                            biol_size)
         with g_timer.phase("intake: bam objects"):
             return self._sr_objects(n, chrom_name, insert_size, tag)
+
+    def _query(self, fn, tid: int, start: int, end: int, *args):
+        """``fn(handle, tid, start, end, *args)``, a native query over
+        [start, end) of ``tid``, which first makes the range resident
+        (``ensure_window``).  Where the streamed reader inflates and
+        decodes it for that, ``g_bam`` counts a load and the records then
+        resident.  The native cache holds the range it decoded last,
+        reaching back by the contig's longest record: it serves a query on
+        that contig that starts no earlier and ends no later.  The
+        whole-file reader counted its one decode on open."""
+        load = False
+        if self.streamed and 0 <= tid < len(self.ref_names):
+            c = self._cached
+            load = not (c and c[0] == tid and c[1] <= start and end <= c[2])
+            if load:
+                self._cached = (tid, start, end)
+        out = fn(self._h, tid, start, end, *args)
+        if load:
+            g_bam.loaded(self._lib.ptbam_resident_records(self._h))
+        return out
+
+    def _pool(self, fn, n: int) -> np.ndarray:
+        """A copy of the first ``n`` elements of a decoder pool, which the
+        decoder's next call overwrites."""
+        return np.ctypeslib.as_array(fn(self._h), (n,)).copy()
 
     def _sr_objects(self, n: int, chrom_name: str, insert_size: int,
                     tag: str) -> Tuple[List[SplitRead], RefReads]:
@@ -237,13 +291,10 @@ class BamReader:
         nref = self._lib.ptbam_n_ref_reads(self._h)
         if not nref:
             return reads, RefReads.empty(tag)
-
-        def pool(fn):
-            return np.ctypeslib.as_array(fn(self._h), (nref,)).copy()
-
-        return reads, RefReads(tag, pool(self._lib.ptbam_ref_read_pos),
-                               pool(self._lib.ptbam_ref_read_mq),
-                               pool(self._lib.ptbam_ref_read_len))
+        lib = self._lib
+        return reads, RefReads(tag, self._pool(lib.ptbam_ref_read_pos, nref),
+                               self._pool(lib.ptbam_ref_read_mq, nref),
+                               self._pool(lib.ptbam_ref_read_len, nref))
 
     def header_text(self) -> str:
         """SAM header text (for @RG sample dictionaries)."""
@@ -256,8 +307,8 @@ class BamReader:
         search_MEI.cpp:689-713).  Returns parallel lists/arrays:
         (names, seqs, read_groups, pos, mpos, mtid, l_qseq, strand_bits)
         where strand_bits packs read-reverse / mate-reverse / READ1."""
-        n = self._lib.ptbam_collect_dd(self._h, tid, start, end,
-                                       insert_size, min_dd_map_distance)
+        n = self._query(self._lib.ptbam_collect_dd, tid, start, end,
+                        insert_size, min_dd_map_distance)
         if not n:
             return [], [], [], [], [], [], [], []
         names = ctypes.string_at(
@@ -290,8 +341,8 @@ class BamReader:
         if chrom_name not in self.ref_names:
             return 0
         tid = self.ref_names.index(chrom_name)
-        return int(self._lib.ptbam_depth_sum(self._h, tid, beg, end,
-                                             min_mapq))
+        return int(self._query(self._lib.ptbam_depth_sum, tid, beg, end,
+                               min_mapq))
 
     def collect_rp(self, chrom_name: str, start: int, end: int,
                    insert_size: int, tag: str,
@@ -300,34 +351,53 @@ class BamReader:
 
         Mirrors build_record_RP_Discovery (reader.cpp:982-1097) including
         the same-chromosome PosA<PosB swap normalization; returns
-        (same-chromosome RPReads, interchromosomal RPReads).
+        (same-chromosome RPReads, interchromosomal RPReads): the native
+        walk (``rp_pairs``) and the objects built from it (``rp_reads``).
         """
-        from pindel_tpu_torch.bddata import RPRead
+        return self.rp_reads(
+            chrom_name, insert_size, tag,
+            self.rp_pairs(chrom_name, start, end, insert_size,
+                          min_anchor_quality))
+
+    def rp_pairs(self, chrom_name: str, start: int, end: int,
+                 insert_size: int,
+                 min_anchor_quality: int = 0) -> DiscordantPairs:
+        """The discordant pairs of [start, end): ``ptbam_collect_rp`` over
+        the window it makes resident, copied out of the decoder's pools.
+        Run while the split-read channel's window is still resident, it
+        decodes nothing again."""
         if chrom_name not in self.ref_names:
-            return [], []
+            return DiscordantPairs.empty()
         tid = self.ref_names.index(chrom_name)
-        n = self._lib.ptbam_collect_rp(self._h, tid, start, end,
-                                       min_anchor_quality, insert_size)
+        with g_timer.phase("intake: bam rp"):
+            n = self._query(self._lib.ptbam_collect_rp, tid, start, end,
+                            min_anchor_quality, insert_size)
+            if not n:
+                return DiscordantPairs.empty()
+            lib = self._lib
+            return DiscordantPairs(self._pool(lib.ptbam_ref_read_pos, n),
+                                   self._pool(lib.ptbam_sr_pos, n),
+                                   self._pool(lib.ptbam_sr_ms, n),
+                                   self._pool(lib.ptbam_ref_read_len, n),
+                                   self._pool(lib.ptbam_sr_dir, n))
+
+    def rp_reads(self, chrom_name: str, insert_size: int, tag: str,
+                 pairs: DiscordantPairs):
+        """(same-chromosome RPReads, interchromosomal RPReads) of the
+        discordant pairs ``rp_pairs`` found on ``chrom_name``, with the
+        PosA<PosB normalization of same-chromosome pairs."""
+        from pindel_tpu_torch.bddata import RPRead
         same: list = []
         inter: list = []
-        if not n:
-            return same, inter
-        # pools reused by the native side: pos / mpos / mtid / mapq / len;
-        # bulk-copy to python lists once (per-element ctypes pointer
-        # indexing and dataclasses.replace dominated this loop)
-        import numpy as np
-        pos = np.ctypeslib.as_array(
-            self._lib.ptbam_ref_read_pos(self._h), (n,)).tolist()
-        mpos = np.ctypeslib.as_array(
-            self._lib.ptbam_sr_pos(self._h), (n,)).tolist()
-        mtid = np.ctypeslib.as_array(
-            self._lib.ptbam_sr_ms(self._h), (n,)).tolist()
-        lens = np.ctypeslib.as_array(
-            self._lib.ptbam_ref_read_len(self._h), (n,)).tolist()
-        strands = np.ctypeslib.as_array(
-            self._lib.ptbam_sr_dir(self._h), (n,)).tolist()
+        # bulk-copy to python lists once (per-element array indexing and
+        # dataclasses.replace dominated this loop)
+        pos = pairs.pos.tolist()
+        mpos = pairs.mpos.tolist()
+        mtid = pairs.mtid.tolist()
+        lens = pairs.length.tolist()
+        strands = pairs.strands.tolist()
         nref = len(self.ref_names)
-        for i in range(n):
+        for i in range(len(pos)):
             da = "-" if strands[i] & 1 else "+"
             db = "-" if strands[i] & 2 else "+"
             pa, pb = pos[i], mpos[i]
@@ -363,8 +433,8 @@ class BamReader:
             z = np.zeros(0, np.int64)
             return z, z, np.zeros(0, np.int32), np.zeros(0, np.int32)
         tid = self.ref_names.index(chrom_name)
-        n = self._lib.ptbam_collect_rp_gt(self._h, tid, start, end,
-                                          insert_size)
+        n = self._query(self._lib.ptbam_collect_rp_gt, tid, start, end,
+                        insert_size)
         if not n:
             z = np.zeros(0, np.int64)
             return z, z, np.zeros(0, np.int32), np.zeros(0, np.int32)

@@ -29,7 +29,7 @@ from typing import Dict, List, Optional, Sequence, TextIO
 import torch
 
 from pindel_tpu_torch import dna
-from pindel_tpu_torch.bam import RefReads
+from pindel_tpu_torch.bam import DiscordantPairs, RefReads
 from pindel_tpu_torch.config import Settings
 from pindel_tpu_torch.events.detect import (CandidateReads, SearchDeletions,
                                             SearchShortInsertions,
@@ -45,9 +45,9 @@ from pindel_tpu_torch.report.reporter import (
     sort_and_output_tandem_duplications,
     sort_and_report_interchromosomal_events, sort_output_d, sort_output_di,
     sort_output_li, sort_output_rest, sort_output_si)
-from pindel_tpu_torch.profiling import (ROOT, g_coverage, g_fallback,
-                                        g_log, g_read_stats, g_timer,
-                                        g_xchrom)
+from pindel_tpu_torch.profiling import (ROOT, g_bam, g_coverage,
+                                        g_fallback, g_log, g_read_stats,
+                                        g_timer, g_xchrom)
 from pindel_tpu_torch.search import Searcher
 
 AROUND_REGION_BUFFER = 10_000   # pindel.cpp:127
@@ -90,6 +90,26 @@ class _WindowSnap:
     displayed_start: int
     displayed_end: int
     index: int = 0          # global window counter (multi-host sharding)
+
+
+@dataclasses.dataclass
+class _Pending:
+    """A window on its way through the pipelined loop: what its read-in
+    gave (split reads, reference reads and, on BAM input with RP discovery,
+    each config entry's discordant pairs, taken while the window was
+    resident) and its close-end token.  The deep pipeline's stage step
+    marks it ``staged`` and adds the close-end reads it kept, their far
+    tokens and the window's BD delta; the token is spent then."""
+
+    window: _WindowSnap
+    reads: object
+    ref_reads: List[RefReads]
+    rp_pairs: List[DiscordantPairs]
+    token: object
+    staged: bool = False
+    kept: Optional[List[SplitRead]] = None
+    far_tokens: Optional[list] = None
+    bd_delta: Optional[list] = None
 
 
 _DELEGATED = "delegated"    # close/far results come from a peer process
@@ -351,16 +371,26 @@ class Pipeline:
                           window: LoopingSearchWindow):
         """get_SR_Reads BAM branch (reader.cpp:1428-1467): per config
         entry, collect split reads + reference-supporting reads over the
-        window, in file order."""
+        window, in file order, and with RP discovery on the entry's
+        discordant pairs while the window is resident (RP discovery after
+        the next window's read-in would decode this one again).  Returns
+        (split reads, reference reads an entry, discordant pairs an entry
+        or [])."""
         s = self.settings
+        with_rp = s.search_discordant_read_pair
 
         def collect(entry):
             reader = self._bam_readers[entry.path]
-            return reader.collect_sr(
+            reads, ref_reads = reader.collect_sr(
                 chrom.name, window.current_start, window.current_end,
                 entry.insert_size, entry.tag, chrom.biol_size,
                 min_anchor_quality=s.min_anchor_quality, nm=s.nm,
                 max_mismatch_rate=s.max_allowed_mismatch_rate)
+            pairs = (reader.rp_pairs(
+                chrom.name, window.current_start, window.current_end,
+                entry.insert_size, min_anchor_quality=s.min_anchor_quality)
+                if with_rp else None)
+            return reads, ref_reads, pairs
 
         paths = [e.path for e in self.bam_entries]
         if (s.num_threads > 1 and len(self.bam_entries) > 1
@@ -375,23 +405,21 @@ class Pipeline:
         else:
             outs = [collect(entry) for entry in self.bam_entries]
         reads: List[SplitRead] = []
-        for rs, _rr in outs:
+        for rs, _rr, _rp in outs:
             reads.extend(rs)
-        return reads, [rr for _rs, rr in outs]
+        return (reads, [rr for _rs, rr, _rp in outs],
+                [rp for _rs, _rr, rp in outs] if with_rp else [])
 
     def _window_rp_discovery(self, chrom: Chromosome,
-                             window: LoopingSearchWindow):
-        """get_RP_Reads_Discovery (reader.cpp:1348-1410): discordant
-        pairs per bam config entry over the window."""
-        s = self.settings
+                             pairs: List[DiscordantPairs]):
+        """get_RP_Reads_Discovery (reader.cpp:1348-1410): the RPReads of
+        the discordant pairs each bam config entry's read-in took over the
+        window (``_window_reads_bam``), in config order."""
         same: List = []
         inter: List = []
-        for entry in self.bam_entries:
-            reader = self._bam_readers[entry.path]
-            rs, ri = reader.collect_rp(
-                chrom.name, window.current_start, window.current_end,
-                entry.insert_size, entry.tag,
-                min_anchor_quality=s.min_anchor_quality)
+        for entry, entry_pairs in zip(self.bam_entries, pairs, strict=True):
+            rs, ri = self._bam_readers[entry.path].rp_reads(
+                chrom.name, entry.insert_size, entry.tag, entry_pairs)
             same.extend(rs)
             inter.extend(ri)
         return same, inter
@@ -488,11 +516,11 @@ class Pipeline:
                 self._window_counter += 1
                 with g_timer.phase("Reading in reads"):
                     if self.bam_input:
-                        reads, ref_reads = self._window_reads_bam(
-                            chrom, window)
+                        reads, ref_reads, rp_pairs = \
+                            self._window_reads_bam(chrom, window)
                     else:
                         reads = self._window_reads(chrom, window)
-                        ref_reads = []
+                        ref_reads, rp_pairs = [], []
                 mine = sp is None or sp.mine(wsnap.index)
                 staged = None
                 if deep and pending is not None:
@@ -518,7 +546,8 @@ class Pipeline:
                     self._process_window(pending, chrom, chr_seq, box_size,
                                          num_boxes, bed)
                 if not deep or pending is None:
-                    pending = (wsnap, reads, ref_reads, token)
+                    pending = _Pending(wsnap, reads, ref_reads, rp_pairs,
+                                       token)
                 window.next()
                 if window.finished(not self.bam_input, self.g_max_pos):
                     break
@@ -559,7 +588,7 @@ class Pipeline:
 
         return bd_regions
 
-    def _search_stage(self, pending, chrom: Chromosome):
+    def _search_stage(self, pending: _Pending, chrom: Chromosome):
         """Deep-pipelining half-step: run the window's RP->BD evidence
         update (the within-window order the reference uses:
         pindel.cpp:1838-1852 UpdateBD -> loadRegion -> search), then
@@ -568,12 +597,13 @@ class Pipeline:
         finalized — far execution overlaps the remaining close chunks on
         device.  Reporting happens one iteration later; the stage runs
         strictly in window order, so _RP writes here stay ordered."""
-        window, reads, ref_reads, token = pending
+        window = pending.window
         s = self.settings
         bd_delta = None
         if self.bam_input and s.search_discordant_read_pair:
             with g_timer.phase("bd: rp discovery"):
-                rp, rp_inter = self._window_rp_discovery(chrom, window)
+                rp, rp_inter = self._window_rp_discovery(chrom,
+                                                         pending.rp_pairs)
             with g_timer.phase("bd: update"), \
                     g_timer.phase("bd: update_bd"):
                 bd_delta = self.bd.update_bd(
@@ -585,24 +615,24 @@ class Pipeline:
                                 window.current_end + SPACER)
         with g_timer.phase("Matching close ends"):
             kept, far_tokens = self.searcher.close_far_stream(
-                chrom, token, bd_regions=self._bd_regions_cb(chrom))
-        return (window, reads, ref_reads, kept, far_tokens, bd_delta)
+                chrom, pending.token, bd_regions=self._bd_regions_cb(chrom))
+        pending.staged = True
+        pending.token = None
+        pending.kept, pending.far_tokens = kept, far_tokens
+        pending.bd_delta = bd_delta
+        return pending
 
-    def _process_window(self, pending, chrom: Chromosome, chr_seq: str,
-                        box_size: int, num_boxes: int,
+    def _process_window(self, pending: _Pending, chrom: Chromosome,
+                        chr_seq: str, box_size: int, num_boxes: int,
                         bed: BedRegion) -> None:
         """Host stages of one window, in window order (the close-end
         device work was dispatched when the window was read in)."""
         s = self.settings
-        staged_delta = None
-        staged = len(pending) == 6  # deep pipeline: search already staged
-        if staged:
-            window, reads, ref_reads, kept, far_tokens, staged_delta = \
-                pending
-            token = None
-        else:
-            window, reads, ref_reads, token = pending
-            kept = far_tokens = None
+        window, reads, ref_reads = (pending.window, pending.reads,
+                                    pending.ref_reads)
+        token, kept, far_tokens = (pending.token, pending.kept,
+                                   pending.far_tokens)
+        staged = pending.staged  # deep pipeline: search already staged
         if token is _SKIP:
             # worker role, peer-owned window: nothing to do — BD
             # evidence state is per-window (update_bd resets to the
@@ -643,7 +673,7 @@ class Pipeline:
             # evidence state for the reporters (-Q confirmation, RD
             # filters) — the stage of window N+1 has since overwritten
             # the shared mask
-            bd_delta = staged_delta
+            bd_delta = pending.bd_delta
             if with_rp:
                 with g_timer.phase("bd: update"), \
                         g_timer.phase("bd: apply delta"):
@@ -660,7 +690,8 @@ class Pipeline:
         elif with_rp:
             import io
             with g_timer.phase("bd: rp discovery"):
-                rp, rp_inter = self._window_rp_discovery(chrom, window)
+                rp, rp_inter = self._window_rp_discovery(chrom,
+                                                         pending.rp_pairs)
             worker = self.spool is not None and self.spool.worker
             sink = io.StringIO() if worker else self._out("RP")
             with g_timer.phase("bd: update"), \
@@ -936,6 +967,7 @@ def run_files(reference_fa: str, pindel_file: Optional[str],
     g_fallback.reset()
     g_coverage.reset()
     g_xchrom.reset()
+    g_bam.reset()
     try:
         with g_timer.phase(ROOT):
             _run_pass(s, reference_fa, pindel_file, bam_config,
@@ -946,6 +978,7 @@ def run_files(reference_fa: str, pindel_file: Optional[str],
         if s.profile:
             g_log.info("  " + g_coverage.show())
             g_log.info("  " + g_xchrom.show())
+            g_log.info("  " + g_bam.show())
         g_log.close()
     return s
 

@@ -424,3 +424,38 @@ class CrossChromStats:
 
 
 g_xchrom = CrossChromStats()
+
+
+class BamStats:
+    """BAM record loads of a pass: ``loads`` the queries for which the
+    streamed reader's window cache inflates and decodes a range
+    (``BamReader._query``), ``records`` the records resident after each; a
+    whole-file reader counts one load of every record on open.
+    ``file_records`` sums the records of the BAM files opened
+    (``BamReader.n_records``).  The ``-T`` pool's readers count from its
+    threads."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self.reset()
+
+    def opened(self, records: int) -> None:
+        with self._lock:
+            self.file_records += records
+
+    def loaded(self, records: int) -> None:
+        with self._lock:
+            self.loads += 1
+            self.records += records
+
+    def reset(self) -> None:
+        self.loads = 0
+        self.records = 0
+        self.file_records = 0
+
+    def show(self) -> str:
+        return ("BAM window loads %d, records decoded %d, records in the "
+                "files %d" % (self.loads, self.records, self.file_records))
+
+
+g_bam = BamStats()

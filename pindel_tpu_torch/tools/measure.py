@@ -378,7 +378,7 @@ def window_log():
     def stamp(name, key):
         def wrapped(self, pending, *args):
             out = real[name](self, pending, *args)
-            index = pending[0].index
+            index = pending.window.index
             for row in reversed(rows):
                 if row["index"] == index:
                     row[key] = time.monotonic() - t0

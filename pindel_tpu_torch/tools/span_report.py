@@ -19,8 +19,10 @@ the sums the benchmark's span and counter readers take (``coverage_s``,
 ``entry_s``, ``device_wait_s``, ``oracle_read_pct``, ``upload_mb``,
 ``xchrom_s``, ``xchrom_oracle_reads``, ``interchrom_s``), the pass's
 reference reads (``coverage_reads``, ``coverage_counted``: handed to the
-coverage update, and counted there) and the reads the cross-chromosome
-route took (``xchrom_reads``) go to standard error; the last line
+coverage update, and counted there), the reads the cross-chromosome
+route took (``xchrom_reads``) and the pass's BAM record loads
+(``bam_loads``, ``bam_records``, ``bam_file_records``: ``g_bam``) go to
+standard error; the last line
 of standard output is one JSON object with them, every pass's wall by mode,
 and ``device`` (the card's name and power limit).  ``--out DIR`` also writes
 the tree there.
@@ -39,7 +41,7 @@ import torch
 
 from pindel_tpu_torch.__main__ import main as port_main
 from pindel_tpu_torch.ops import fused_cuda
-from pindel_tpu_torch.profiling import (PREFIX, ROOT, g_coverage,
+from pindel_tpu_torch.profiling import (PREFIX, ROOT, g_bam, g_coverage,
                                         g_fallback, g_timer, g_xchrom)
 from pindel_tpu_torch.tools import measure
 
@@ -160,6 +162,8 @@ def main(argv=None) -> int:
                                 coverage=(g_coverage.reads,
                                           g_coverage.counted),
                                 xchrom=(g_xchrom.reads, g_xchrom.oracle),
+                                bam=(g_bam.loads, g_bam.records,
+                                     g_bam.file_records),
                                 upload=fused_cuda.UPLOAD_BYTES)
     log(last["report"])
     root = [row for row in last["tree"] if row[0] == 0 and row[1] == ROOT][0]
@@ -181,7 +185,8 @@ def main(argv=None) -> int:
         interchrom_s=items.get("window: interchromosomal"),
         coverage_reads=last["coverage"][0],
         coverage_counted=last["coverage"][1],
-        tree=[list(row) for row in last["tree"]], device=card)
+        bam_loads=last["bam"][0], bam_records=last["bam"][1],
+        bam_file_records=last["bam"][2], tree=[list(row) for row in last["tree"]], device=card)
     cost = {m: out["medians"][m] / out["medians"]["off"] - 1
             for m in ("on", "profiled")}
     out["cost"] = cost
@@ -195,7 +200,9 @@ def main(argv=None) -> int:
         f"xchrom_s {out['xchrom_s']}, xchrom_reads {out['xchrom_reads']}, "
         f"xchrom_oracle_reads {out['xchrom_oracle_reads']}, interchrom_s "
         f"{out['interchrom_s']}, coverage_reads {out['coverage_reads']}, "
-        f"coverage_counted {out['coverage_counted']}  [{card}]")
+        f"coverage_counted {out['coverage_counted']}, bam_loads "
+        f"{out['bam_loads']}, bam_records {out['bam_records']}, "
+        f"bam_file_records {out['bam_file_records']}  [{card}]")
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         name = f"span_tree_{args.cell or 'cli'}_{args.seed}.txt"

@@ -40,7 +40,7 @@ DIFFERS = {
         ("make_backend_factory", "run_files", "Pipeline.run",
          "Pipeline._search_stage", "Pipeline._process_window",
          "Pipeline._window_reads_bam", "Pipeline._update_ref_coverage",
-         "Pipeline.create_output_files"),
+         "Pipeline.create_output_files", "Pipeline._window_rp_discovery"),
         "the port's entry points build torch backends; the reference's "
         "switch over its own backend names stays with it; the port's pass "
         "runs under a root span with spans for set-up, the reference-read "
@@ -48,7 +48,9 @@ DIFFERS = {
         "apply_bd_delta apart; reference reads as arrays, coverage by a "
         "difference array; a fused backend makes partner backends for "
         "the cross-chromosome route; an earlier run's _INT is removed at "
-        "start, so a rerun under one prefix reports its calls once"),
+        "start, so a rerun under one prefix reports its calls once; RP "
+        "discovery takes the window's discordant pairs collected at "
+        "read-in"),
     "search.py": (
         ("Searcher._far_round",),
         "reads whose far-end lanes lie on another chromosome take the "
@@ -60,11 +62,17 @@ DIFFERS = {
         "the port's Timer records spans with parents and threads, opens "
         "each as a profiler range while recording, and sums under a lock"),
     "bam.py": (
-        ("BamReader.collect_sr",),
+        ("BamReader.__init__", "BamReader.collect_sr",
+         "BamReader.collect_rp", "BamReader.collect_rp_gt",
+         "BamReader.collect_dd", "BamReader.depth_sum"),
         "the port times the native decode and the building of the read "
         "objects as two spans (the objects in BamReader._sr_objects, "
         "which the reference lacks); reference reads as arrays, coverage "
-        "by a difference array"),
+        "by a difference array; collect_rp is the native walk "
+        "(rp_pairs), which the window's read-in runs while the window is "
+        "resident, and the objects built from it (rp_reads); every window "
+        "query goes through BamReader._query, which counts the loads of "
+        "the native window cache (profiling.g_bam)"),
     "dd.py": (("run_dd_files",),
               "-q's entry is pipeline.run_dd_files, on the port's factory"),
     "assembly.py": (("run_assembly_files",),

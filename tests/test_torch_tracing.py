@@ -36,6 +36,7 @@ CATALOGUE = {
     "Reading in reads", "intake: index pindel text",
     "intake: parse pindel text", "intake: index reads",
     "intake: bam index", "intake: bam decode", "intake: bam objects",
+    "intake: bam rp",
     "bd: rp discovery", "bd: update", "bd: update_bd", "bd: apply delta",
     "bd: load region", "coverage: reference reads",
     "window: bookkeeping", "window: close-end report",
