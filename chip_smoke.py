@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py [--profile-dir DIR] [--parent-kernel PATH]
+    python3 chip_smoke.py [--profile-dir DIR]
 
 Phases, in order (each logs the command time at which it starts); any
 failure exits non-zero:
@@ -13,12 +13,10 @@ failure exits non-zero:
 1. environment: torch, CUDA and nvcc versions, the card's name and power
    limit, the host's CPU model and core count;
 2. build: the CUDA scan kernel (csrc/scan.cu), the fused close/far/far_win
-   kernels (csrc/fused_search.cu; both include csrc/scan_walk.cuh), the shard
-   kernel of the window-parallel search (csrc/sharded_search.cu) and, where
-   its source is at hand (``--parent-kernel``, or ``git show`` of
-   PARENT_REV), the shard kernel it replaced, from the checkout's sources,
-   one nvcc for each, started together, with ptxas's registers, shared
-   memory and spills;
+   kernels (csrc/fused_search.cu; both include csrc/scan_walk.cuh) and the
+   shard kernel of the window-parallel search (csrc/sharded_search.cu),
+   from the checkout's sources, one nvcc for each, started together, with
+   ptxas's registers, shared memory and spills;
 3. kernel against its plain PyTorch version, both on the card, bit for bit,
    on random cases and the extremes (w = 32768, 65536 and 98304, lmax =
    1024), then on rows built for each branch of the kernel
@@ -61,15 +59,22 @@ failure exits non-zero:
    launch no time: K1's walk runs inside the fused kernels;
 5. scene 1 of bench.py at full size (50,000 reads over a 6 Mb chromosome,
    -T 4) and 6. scene 2 (BAM input with a BreakDancer calls file: 12,000
-   read pairs over a 2 Mb chromosome, -T 4), each: a first run that
-   records every search call the main path makes (K2, K3 and K4), a run
-   with the plain versions in place of the kernels (the ``_ref`` bodies
-   over the plain scan), then three timed runs whose reports must be
-   byte-identical to the plain run's (scene 2's also to the reference's
-   sha256 digests in pindel_tpu_torch/testing/scene2_digests.json), with
-   the median wall time, rate, fallback ratio, launches per kernel
-   (``pt_close`` and ``pt_far`` must launch, ``pt_far_win`` once a K4
-   call, the standalone scan never) and phase timers; then K1 at every
+   read pairs over a 2 Mb chromosome, -T 4), each built by
+   testing/scenes.py:SCENES and run through the recorded run
+   (``scenes.run_scene``): a first run that records every search call the
+   main path makes (K2, K3 and K4), a run with the plain versions in place
+   of the kernels (the ``_ref`` bodies over the plain scan; no kernel
+   launched), then three timed runs whose reports must be byte-identical
+   to the plain run's; every run is held by the scene gate
+   (``scenes.problems``: the reference's sha256 digests in
+   pindel_tpu_torch/testing/scene{1,2}_digests.json, a non-empty ``_D``,
+   a fallback ratio of at most 1%, K4 rows on scene 2 and ``pt_far_win``
+   launched for them, and over the kernel runs the search kernels
+   launched, equally often in each), with the median wall time, rate,
+   fallback ratio, launches per kernel (``pt_close`` and ``pt_far`` must
+   launch, ``pt_far_win`` once a K4 call, the standalone scan never), K4
+   and legacy rows equal from run to run, and phase timers; then K1 at
+   every
    recorded call's shapes (the scan calls the torch composition each
    fused kernel replaced makes for its recorded call) is held against the
    plain version, its rows are classed by seed count (the kernel walks
@@ -130,44 +135,34 @@ failure exits non-zero:
       (1, 8), (4, 2) and over every visible card;
    c. phase 3b's full batch at (1, 1) and (1, 4) over cuda:0: anchors
       equal to K8's, its sampled reads equal to the twin's; every kernel
-      call held against the twin over all its rows, timed beside the
-      parent's kernel (the one this kernel replaced, when built), with its
+      call held against the twin over all its rows and timed, with its
       bound (``shard_bound``), the wall, launches and peak memory;
    d. ``--backend numpy`` and ``--backend jax`` on the 16 small scenes
       against the golden reports;
-   e. the shard kernel against the parent's on K8's small calls (the
-      route's calls of phase 3b's 12-read batches), timed in turns;
+   e. the shard kernel against its twin on K8's small calls (the route's
+      calls of phase 3b's 12-read batches), each timed;
 10. scenes 1 and 2 at full size through ``--backend jax`` (K8 on the card,
    so every search through the route and the shard kernel): reports
    byte-identical to the fused runs of 5 and 6 (scene 2's also to the
    digests), the shard kernel launched, the plain ``_search_kernel`` never
    run on the card (``engine_jax.PLAIN_ON_CARD``), with the wall, the
    legacy rows and the launches; the largest shard call of each scene is
-   held against the twin and timed beside the parent's kernel;
+   held against the twin and timed;
 11. the port's measurement tools, each in a fresh interpreter:
-   ``python -m pindel_tpu_torch.bench --runs 1 --scenes scene1,scene2``
-   (one timed run a scene, not five, and not scenes 3 and 4: phases 5, 6,
-   12 and 13 run its scenes through its own run and gate),
-   ``pindel_tpu_torch.tools.
-   kernel_bench --per-round``, ``profile_bench --scene 1 --runs 2`` and
-   ``multihost_bench --hosts 2``: each exits 0 with ``"correct": true``,
-   its rates and times positive, the device-busy share in (0, 1], the
-   bench's and the profile's search kernel launches equal to phases 5 and
-   6, and each tool's build and first-use times logged; each tool's JSON line is
-   printed on a line of its own.  ``profile_bench --scene 3 --runs 1``
-   and ``--scene 4 --runs 1`` trace one run of scenes 3 and 4 (the busy
-   share and the kernels' device time at that size); their launches must
-   equal phase 12's and 13's;
+   ``python -m pindel_tpu_torch.tools.kernel_bench --per-round`` and
+   ``multihost_bench --hosts 2``: each exits 0 with ``"correct": true`` on
+   this card, its times positive, its build and first-use times logged and
+   its JSON line printed on a line of its own;
 12. scene 3 (testing/scenes.py:build_scene3: about 90,750 BAM read pairs
    with BreakDancer calls over 15 Mb, three 5 Mb windows, in the shape of
    the reference pindel's colousingbd15 run) once through the CLI on the
    card: K1 at every recorded call's shapes (the compositions', as in 5)
    held against the plain version (max_abs_err 0), each shape timed; the
    reports equal to the reference's digests (testing/scene3_digests.json);
-   the bench's gate
-   (``pindel_tpu_torch.bench.problems``: digests, a non-empty ``_D``,
-   fallback at most 1%, three windows, the search kernels launched and
-   ``_far_win_kernel`` rows above 0, ``pt_far_win`` launched for them);
+   the scene gate over the recorded run (``scenes.problems`` over
+   ``scenes.run_scene``: digests, a non-empty ``_D``, fallback at most 1%,
+   three windows, the search kernels launched and ``_far_win_kernel`` rows
+   above 0, ``pt_far_win`` launched for them);
    ``pt_far_win`` launched once a K4 call and the standalone scan never;
    the windows, K4 rows, legacy rows, shard kernel launches, search kernel
    launches and peak card memory printed, with each window's reads and
@@ -182,10 +177,10 @@ failure exits non-zero:
    interchromosomal BreakDancer calls, in the shape of a whole-genome
    run): ``scene4`` (-c ALL -I) once recorded and once with each region's
    device memory logged, ``scene4_bed`` (-j/-J: chr1 as two regions, chr3)
-   and ``scene4_c`` (one -c region) through the bench's run on the card,
-   each held to the reference's digests (testing/scene4_digests.json) by
-   the bench's gate (the windows, K4 rows, the reads the cross-chromosome
-   route took on ``scene4``); ``_INT`` not empty on
+   and ``scene4_c`` (one -c region) through ``scenes.run_scene`` on the
+   card, each held to the reference's digests (testing/scene4_digests.json)
+   by ``scenes.problems`` (the windows, K4 rows, the reads the
+   cross-chromosome route took on ``scene4``); ``_INT`` not empty on
    ``scene4``, ``_INT_final`` empty on the others; at the start of each
    region's window loop ``torch.cuda.memory_allocated()`` printed, no
    earlier region's backend alive and the memory no more than one
@@ -219,18 +214,13 @@ import time
 import numpy as np
 import torch
 
+from pindel_tpu_torch.testing import scenes
 from pindel_tpu_torch.tools.measure import (PEAK_BYTES, PEAK_INT32_OPS,
                                             card_line, device_ms,
-                                            fused_bound,
-                                            region_log, row_classes,
-                                            scan_bound)
+                                            fused_bound, region_log,
+                                            row_classes, scan_bound)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-# the commit whose shard kernel (csrc/sharded_search.cu) the redesign
-# replaced, timed beside it where its source is at hand
-PARENT_REV = "6efbcdb"
-PARENT_SOURCE = "pindel_tpu_torch/csrc/sharded_search.cu"
-MAX_FALLBACK = 0.01
 TIMED_RUNS = 3
 HOSTS_TIMED_RUNS = 1        # phase 8c: each rank count, in turns
 # phase 7: the device lists of the mesh runs (None: every visible card)
@@ -253,14 +243,11 @@ HOSTS_PHASES = ("Matching close ends", "multihost: wait for worker windows",
 # candidate, or the last): the tile byte load, the strict compare, the N
 # compare, the xor and add to its count, the last-mismatch select, the
 # death compare, the level slot's address, the count atomic, the key-level
-# compare, the strict bit's compare and or, the key atomic.  The earlier
-# count (the parent's kernel, PARENT_REV: 7 per candidate, SHARD_STEP_OPS
-# per step from step 1) is printed beside it
+# compare, the strict bit's compare and or, the key atomic
 SHARD_SEED_OPS_PER_WORD = 8
 SHARD_PATTERN_OPS = 24
 SHARD_PATTERN_STEPS = 8
 SHARD_STEP_OPS = 13
-EARLIER_SHARD_SEED_OPS = 7
 # the grids of the backend runs over ["cuda:0"] * 8, and the wp of the
 # full-width runs over cuda:0 (dp = 1)
 SHARD_GRIDS = [(2, 4), (1, 8), (4, 2)]
@@ -270,19 +257,9 @@ SHARD_PLAIN_ROWS = 512      # rows per call of the plain twin at full width
 SCAN_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "bound_dense_ms")
 # phase 11: (name, module, arguments) of each tool, and each one's time
-# limit in seconds.  The bench repeats scenes that phases 5, 6, 12 and 13
-# run, so it takes one timed run of each here (its default is five), and
-# leaves scenes 3 and 4 to phases 12 and 13 (its own run and gate there)
-TOOLS = [("bench", "pindel_tpu_torch.bench",
-          ["--runs", "1", "--scenes", "scene1,scene2"]),
-         ("kernel_bench", "pindel_tpu_torch.tools.kernel_bench",
+# limit in seconds
+TOOLS = [("kernel_bench", "pindel_tpu_torch.tools.kernel_bench",
           ["--per-round"]),
-         ("profile_bench", "pindel_tpu_torch.tools.profile_bench",
-          ["--scene", "1", "--runs", "2"]),
-         ("profile_bench_scene3", "pindel_tpu_torch.tools.profile_bench",
-          ["--scene", "3", "--runs", "1"]),
-         ("profile_bench_scene4", "pindel_tpu_torch.tools.profile_bench",
-          ["--scene", "4", "--runs", "1"]),
          ("multihost_bench", "pindel_tpu_torch.tools.multihost_bench",
           ["--hosts", "2"])]
 TOOL_TIMEOUT_S = 300
@@ -505,9 +482,7 @@ def shard_bound(args, kw, out):
     this call's output) at PEAK_INT32_OPS, or its bytes (each lane's tile
     span of the chromosome and every other input read once, the partials
     written once) at PEAK_BYTES, whichever is longer.  Returns (ms,
-    "operations" or "bytes", seeded candidates, walked steps, and the
-    earlier count in ms: EARLIER_SHARD_SEED_OPS per candidate and
-    SHARD_STEP_OPS per step walked from step 1)."""
+    "operations" or "bytes", seeded candidates, walked steps)."""
     _chrom, slice_start, reverse, qq, valid_w, max_snp, tsec_minus = args
     b, nl = slice_start.shape
     cands = b * nl * kw["w_local"]
@@ -515,7 +490,6 @@ def shard_bound(args, kw, out):
     _seeded, walked_on = shard_work(out[0], SHARD_PATTERN_STEPS)
     ops = (cands * SHARD_SEED_OPS_PER_WORD / 4 + seeded * SHARD_PATTERN_OPS
            + walked_on * SHARD_STEP_OPS)
-    earlier = cands * EARLIER_SHARD_SEED_OPS + walked * SHARD_STEP_OPS
     nbytes = (b * nl * (kw["w_local"] + kw["lmax"])
               + sum(x.numel() * x.element_size()
                     for x in (slice_start, reverse, qq, valid_w, max_snp,
@@ -523,57 +497,7 @@ def shard_bound(args, kw, out):
               + sum(o.numel() * o.element_size() for o in out))
     t_ops, t_bytes = ops / PEAK_INT32_OPS, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes", seeded, walked,
-            max(earlier / PEAK_INT32_OPS, t_bytes) * 1e3)
-
-
-def parent_source(path):
-    """The parent's shard kernel source: ``path`` if given, else ``git
-    show`` of PARENT_REV from this checkout's history, written under the
-    build directory; None where neither is at hand."""
-    if path:
-        return path
-    res = subprocess.run(["git", "-C", REPO, "show",
-                          f"{PARENT_REV}:{PARENT_SOURCE}"],
-                         capture_output=True)
-    if res.returncode != 0:
-        return None
-    out = os.path.join(REPO, "pindel_tpu_torch", "build",
-                       "sharded_search_parent.cu")
-    os.makedirs(os.path.dirname(out), exist_ok=True)
-    with open(out, "wb") as fh:
-        fh.write(res.stdout)
-    return out
-
-
-def parent_kernel(library: str):
-    """The parent's shard kernel from its built library, called as
-    ``shard_partials_cuda`` is (its C entry point: one block per row, the
-    row's queries staged in shared memory)."""
-    import ctypes
-    lib = ctypes.CDLL(library)
-    lib.pt_shard_partials.argtypes = (
-        [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 7
-        + [ctypes.c_int] * 9 + [ctypes.c_void_p])
-    lib.pt_shard_partials.restype = ctypes.c_int
-
-    def call(chrom, slice_start, reverse, qq, valid_w, max_snp, tsec_minus,
-             *, off, w_total, w_local, lmax, nl, mpm, t_levels, s_levels):
-        b = qq.shape[0]
-        cnt = torch.empty((b, lmax, t_levels + 2), dtype=torch.int32,
-                          device=chrom.device)
-        key = torch.empty((b, lmax, s_levels + 2), dtype=torch.int32,
-                          device=chrom.device)
-        err = lib.pt_shard_partials(
-            chrom.data_ptr(), chrom.shape[0], slice_start.data_ptr(),
-            reverse.data_ptr(), qq.data_ptr(), valid_w.data_ptr(),
-            tsec_minus.data_ptr(), cnt.data_ptr(), key.data_ptr(), b, nl,
-            w_total, w_local, off, lmax, mpm, t_levels, s_levels,
-            torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise RuntimeError(f"parent shard kernel: CUDA error {err}")
-        return cnt, key
-    return call
+            "operations" if t_ops >= t_bytes else "bytes", seeded, walked)
 
 
 def packed_args(chrom_t, maxmm_t, lanes, ms, tm, rate: float, w: int,
@@ -654,67 +578,40 @@ def run_tool(name: str, module: str, argv, card: str) -> dict:
     return line
 
 
-def check_tools(tools, launches1: int, launches2: int) -> None:
-    """Phase 11's checks of the tools' lines: rates and times positive,
-    the busy share in (0, 1], search kernel launches (the scan's and the
-    fused kernels') equal to phases 5 and 6 (the profiles of scenes 3 and
-    4 are held to phases 12 and 13 there)."""
-    b = tools["bench"]
-    times = b["runs"] + b["scene2_runs"]
-    if not (b["value"] > 0 and b["scene2_value"] > 0
-            and all(t > 0 for t in times)):
-        fail(f"bench: rates {b['value']}, {b['scene2_value']}, walls "
-             f"{times}")
-    if {k: b["launches"][k] for k in ("scene1", "scene2")} != {
-            "scene1": launches1, "scene2": launches2}:
-        fail(f"bench: search kernel launches {b['launches']}, phases 5 and 6 "
-             f"{launches1} and {launches2}")
+def run_counts(c) -> dict:
+    """The launches of a recorded run (``scenes.run_scene``'s counters) by
+    kernel: ``launches`` the standalone scan's, then the fused kernels'."""
+    return dict(launches=c["scan_launches"],
+                close_launches=c["close_launches"],
+                far_launches=c["far_launches"],
+                far_win_launches=c["far_win_launches"])
+
+
+def check_tools(tools) -> None:
+    """Phase 11's checks of the tools' lines: times positive, one launch a
+    fused call, and the workers' start-up timed."""
     for call, c in tools["kernel_bench"]["calls"].items():
         # K2, K3 and K4: one fused launch, the composition timed beside it
         if not (c["ms"] > 0 and c["k1_ms"] > 0 and c["bound_ms"] > 0
                 and c["launches"] == 1 and c["parent_ms"] > 0):
             fail(f"kernel_bench {call}: {c}")
-    for name in ("profile_bench", "profile_bench_scene3",
-                 "profile_bench_scene4"):
-        p = tools[name]
-        if not (p["busy_share"] is not None and 0 < p["busy_share"] <= 1
-                and p["device_s"] > 0 and all(t > 0 for t in p["runs"])):
-            fail(f"{name}: busy share {p['busy_share']}, device "
-                 f"{p['device_s']} s, walls {p['runs']}")
-    p = tools["profile_bench"]
-    if p["launches"] != launches1:
-        fail(f"profile_bench: search kernel launches {p['launches']}, phase 5 "
-             f"{launches1}")
     m = tools["multihost_bench"]
     workers = m["ranks"][1:]
     if not (m["t1"] > 0 and m["tN"] > 0 and m["speedup"] > 0 and workers
             and all(r["spawn_to_ready_s"] > 0 for r in workers)):
         fail(f"multihost_bench: {m}")
-    log(f"phase 11: bench {b['value']:.1f} reads/s (scene 1), "
-        f"{b['scene2_value']:.1f} read pairs/s (scene 2), search kernel "
-        f"launches {b['launches']}, equal to phases 5 and 6; profile busy "
-        f"share "
-        f"{p['busy_share']:.4%} (scene 1), "
-        f"{tools['profile_bench_scene3']['busy_share']:.4%} (scene 3), "
-        f"{tools['profile_bench_scene4']['busy_share']:.4%} (scene 4); "
-        f"--hosts {m['hosts']} speedup {m['speedup']:.3f}")
+    log(f"phase 11: kernel_bench's {len(tools['kernel_bench']['calls'])} "
+        f"calls one launch each; --hosts {m['hosts']} speedup "
+        f"{m['speedup']:.3f}")
 
 
 def tool_summary(tools) -> dict:
     """What the kernels line keeps of the tools' lines."""
-    b = tools["bench"]
     return dict(
-        bench=dict(launches=b["launches"], value=b["value"],
-                   scene2_value=b["scene2_value"]),
         kernel_bench={k: {x: c[x] for x in ("ms", "parent_ms", "k1_ms",
                                             "bound_ms", "earlier_bound_ms",
                                             "launches")}
                       for k, c in tools["kernel_bench"]["calls"].items()},
-        profile_bench={name: dict(busy_share=tools[name]["busy_share"],
-                                  launches=tools[name]["launches"])
-                       for name in ("profile_bench",
-                                    "profile_bench_scene3",
-                                    "profile_bench_scene4")},
         multihost_bench=dict(speedup=tools["multihost_bench"]["speedup"]))
 
 
@@ -729,9 +626,6 @@ def main() -> int:
     ap.add_argument("--profile-dir", default=None,
                     help="also trace a run of each full-size scene with "
                          "torch.profiler and write its kernel table here")
-    ap.add_argument("--parent-kernel", default=None,
-                    help="the source of the shard kernel the redesign "
-                         f"replaced (default: git show {PARENT_REV})")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this needs a CUDA card")
@@ -755,14 +649,12 @@ def main() -> int:
     from pindel_tpu_torch.pipeline import (g_fallback, g_timer, g_xchrom,
                                           run_files)
     from pindel_tpu_torch.testing.scenes import (BAM_SCENES, SCENE1,
-                                                 SCENE1_FLAGS, SCENE2,
                                                  SCENE4_DIGESTS,
                                                  SCENE4_RUNS, SMALL_SCENES,
                                                  SUITE_BACKENDS,
                                                  SUITE_SCENES, bam_argv,
                                                  digests, legacy_anchors,
-                                                 SCENE2_DIGESTS, load_digests,
-                                                 load_golden,
+                                                 load_digests, load_golden,
                                                  reports, sharded_anchors,
                                                  two_region_lanes,
                                                  write_scene)
@@ -792,20 +684,8 @@ def main() -> int:
         info = module.build(force=True, ptxas_info=True)
         return info, time.monotonic() - t0
 
-    parent_src = parent_source(args.parent_kernel)
-    parent_lib = os.path.join(os.path.dirname(sharded_search_cuda.LIBRARY),
-                              "libpt_sharded_parent.so")
-
-    class ParentBuild:
-        @staticmethod
-        def build(force, ptxas_info):
-            return scan_cuda.compile_library(parent_src, parent_lib, force,
-                                             ptxas_info)
-
     modules = [("scan", scan_cuda), ("fused", fused_cuda),
                ("shard", sharded_search_cuda)]
-    if parent_src:
-        modules.append(("parent shard", ParentBuild))
     with concurrent.futures.ThreadPoolExecutor(len(modules)) as pool:
         builds = {name: pool.submit(timed_build, module)
                   for name, module in modules}
@@ -816,11 +696,6 @@ def main() -> int:
                 if any(k in line for k in ("entry function", "registers",
                                            "spill")):
                     log("  ptxas: " + line.strip())
-    parent_shard = parent_kernel(parent_lib) if parent_src else None
-    log(f"parent shard kernel ({PARENT_REV}): "
-        + (f"built from {parent_src}" if parent_src else
-           "source not at hand (no --parent-kernel, no git history); its "
-           "times are not measured"))
 
     dev = torch.device("cuda")
     max_err = 0
@@ -911,7 +786,7 @@ def main() -> int:
         log(f"K8 route vs plain on the card, {label}: packed buffers "
             f"byte-identical, {int(emit.sum())} emissions")
     # the route's shard calls on the small two-region batches (phase 9e
-    # times them against the parent's kernel)
+    # holds them against the twin and times them)
     small_calls = []
     small_launches = 0
     real_partials = sss.shard_partials
@@ -1077,10 +952,18 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     def check_run(label, launches, device_run=True):
+        """scenes.problems' launch and fallback rules, for a CLI run that
+        is not a scene's recorded run."""
         if device_run and launches == 0:
             fail(f"{label}: the search kernels never launched")
-        if device_run and g_fallback.ratio() > MAX_FALLBACK:
+        if device_run and g_fallback.ratio() > scenes.MAX_FALLBACK:
             fail(f"{label}: fallback ratio {g_fallback.ratio()}")
+
+    def gate(label, scene, runs, kernel=True):
+        """``scenes.problems`` over a scene's recorded runs."""
+        bad = scenes.problems(scene, runs, kernel)
+        if bad:
+            fail(f"{label}: {bad}")
 
     def same_reports(label, want, port):
         if set(want) != set(port):
@@ -1186,10 +1069,11 @@ def main() -> int:
         return row
 
     def check_path(label, k4_rows, k4_calls=None):
-        """The launches of a CLI run since reset_counts(): K1's standalone
-        scan never (its walk runs inside the fused kernels), ``pt_far_win``
-        wherever K4 searched rows, once a K4 call (``k4_calls``, where the
-        calls were counted)."""
+        """The launches of the last CLI run (counted from reset_counts() or
+        from ``scenes.run_scene``'s start): K1's standalone scan never (its
+        walk runs inside the fused kernels), ``pt_far_win`` wherever K4
+        searched rows, once a K4 call (``k4_calls``, where the calls were
+        counted)."""
         counts = launch_counts()
         if counts["scan"]:
             fail(f"{label}: the standalone scan launched {counts['scan']} "
@@ -1285,11 +1169,15 @@ def main() -> int:
             f"{main_shape['bound_dense_ms']:.4f} ms  [{card}]")
         return dict(main_shape, max_abs_err=err_all)
 
-    def full_scene(label, argv_of, n, unit, check_reports):
-        """5/6: record, plain-scan, timed and per-call phases of one
-        full-size scene; returns the median run and the scan checks."""
+    def full_scene(label, scene, d):
+        """5/6: recorded, plain, timed and per-call phases of one full-size
+        ``scenes.Scene``, each run through ``scenes.run_scene`` under a
+        prefix in ``d``; returns the median run and the scan checks."""
+        def run(name):
+            return scenes.run_scene(scene, os.path.join(d, name), dev)
+
         # a. first run (cold): record every search call of the main path
-        first_s, fused = recorded(lambda: run_cli(port_main, argv_of("rec")))
+        first, fused = recorded(lambda: run("rec"))
         k4_calls = sum(c[0] == "_far_win_kernel" for c in fused)
         # b. the plain versions in the kernels' place (the _ref bodies over
         # the plain scan): the reference reports
@@ -1297,72 +1185,61 @@ def main() -> int:
         engine_fused.scan_rows = scan_rows_ref
         for name in FUSED:
             setattr(engine_fused, name, PLAIN[name])
-        before = fused_cuda.search_launches()
         try:
-            plain_s = run_cli(port_main, argv_of("plain"))
+            plain = run("plain")
         finally:
             engine_fused.scan_rows = kernel_scan
             for name in FUSED:
                 setattr(engine_fused, name, fused_kernels[name])
-        if fused_cuda.search_launches() != before:
+        if plain["launches"]:
             fail(f"{label}: the plain run launched a kernel")
-        want = reports(prefix_of(argv_of("plain")))
-        check_reports(want)
-        if reports(prefix_of(argv_of("rec"))) != want:
+        gate(f"{label} plain run", scene, [plain], kernel=False)
+        want = reports(os.path.join(d, "plain"))
+        if reports(os.path.join(d, "rec")) != want:
             fail(f"{label}: the first kernel run's reports differ from the "
                  "plain run's")
-        log(f"{label}: first run {first_s:.3f} s ({len(fused)} K2/K3/K4 "
-            f"calls recorded, {k4_calls} of them K4's), plain run "
-            f"{plain_s:.3f} s  [{card}]")
+        log(f"{label}: first run {first['wall']:.3f} s ({len(fused)} "
+            f"K2/K3/K4 calls recorded, {k4_calls} of them K4's), plain run "
+            f"{plain['wall']:.3f} s  [{card}]")
 
-        # c. timed runs through the kernel
+        # c. timed runs through the kernels
         runs = []
         for i in range(TIMED_RUNS):
-            reset_counts()
-            torch.cuda.reset_peak_memory_stats()
-            argv = argv_of(f"run{i}")
-            wall = run_cli(port_main, argv)
-            runs.append(dict(wall=wall, launches=scan_cuda.LAUNCHES,
-                             search=fused_cuda.search_launches(),
-                             kernels=launch_counts(),
-                             far_win_rows=engine_fused.FAR_WIN_ROWS,
-                             legacy_rows=engine_jax.LEGACY_ROWS,
-                             phases=g_timer.items(),
-                             fallback=(g_fallback.fallback, g_fallback.total,
-                                       g_fallback.ratio()),
-                             peak=torch.cuda.max_memory_allocated()))
-            check_run(f"{label} run {i}", fused_cuda.search_launches())
-            if not (fused_cuda.LAUNCHES_BY_KERNEL["close"]
-                    and fused_cuda.LAUNCHES_BY_KERNEL["far"]):
+            r = run(f"run{i}")
+            c = r["counters"]
+            if not (c["close_launches"] and c["far_launches"]):
                 fail(f"{label} run {i}: pt_close/pt_far launches "
-                     f"{dict(fused_cuda.LAUNCHES_BY_KERNEL)}")
-            check_path(f"{label} run {i}", engine_fused.FAR_WIN_ROWS,
-                       k4_calls)
-            if reports(prefix_of(argv)) != want:
+                     f"{run_counts(c)}")
+            check_path(f"{label} run {i}", c["far_win_rows"], k4_calls)
+            if reports(os.path.join(d, f"run{i}")) != want:
                 fail(f"{label} run {i}: reports differ from the plain "
                      "run's")
-            log(f"{label} run {i}: wall {wall:.3f} s, {n / wall:.1f} "
-                f"{unit}/s, launches {launch_counts()}  [{card}]")
-        for key in ("search", "far_win_rows", "legacy_rows"):
-            if len({r[key] for r in runs}) != 1:
+            runs.append(r)
+            log(f"{label} run {i}: wall {r['wall']:.3f} s, "
+                f"{scene.n / r['wall']:.1f} {scene.unit}/s, launches "
+                f"{run_counts(c)}  [{card}]")
+        gate(label, scene, [first] + runs)
+        for key in ("far_win_rows", "legacy_rows"):
+            if len({r["counters"][key] for r in runs}) != 1:
                 fail(f"{label}: {key} differ between runs "
-                     f"{[r[key] for r in runs]}")
+                     f"{[r['counters'][key] for r in runs]}")
         walls = [r["wall"] for r in runs]
         med = runs[walls.index(statistics.median(walls))]
-        fb, total, ratio = med["fallback"]
+        c = med["counters"]
         log(f"{label}: median wall {med['wall']:.3f} s of {TIMED_RUNS} "
-            f"({n / med['wall']:.1f} {unit}/s), reports byte-identical to "
-            f"the plain run, fallback {fb}/{total} = {ratio:.6f}, "
-            f"launches {med['kernels']}, _far_win_kernel rows "
-            f"{med['far_win_rows']}, legacy rows {med['legacy_rows']}, peak "
-            f"device memory {med['peak'] / 2 ** 20:.1f} MiB  [{card}]")
+            f"({scene.n / med['wall']:.1f} {scene.unit}/s), reports "
+            f"byte-identical to the plain run and the reference's digests, "
+            f"fallback {med['fallback']:.6f}, launches {run_counts(c)}, "
+            f"_far_win_kernel rows {c['far_win_rows']}, legacy rows "
+            f"{c['legacy_rows']}, peak device memory {c['peak_mib']:.1f} MiB"
+            f"  [{card}]")
         for pname, sec in sorted(med["phases"].items(),
                                  key=lambda kv: -kv[1]):
             log(f"  phase {pname:<52s} {sec:9.3f} s  [{card}]")
 
         log(f"{label}: standalone scan (scan_rows) launches on the path "
-            f"{med['kernels']['scan']}, pt_far_win {med['kernels']['far_win']}"
-            f" for {k4_calls} K4 calls  [{card}]")
+            f"{c['scan_launches']}, pt_far_win {c['far_win_launches']} for "
+            f"{k4_calls} K4 calls  [{card}]")
         # d. K1 at every recorded call's shapes (as the compositions the
         # fused kernels replaced call it): kernel vs plain, time per shape
         scan = check_calls(label, composition_calls(fused), split=True)
@@ -1373,7 +1250,8 @@ def main() -> int:
             os.makedirs(args.profile_dir, exist_ok=True)
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
-                prof_wall = run_cli(port_main, argv_of("prof"))
+                prof_wall = run_cli(port_main,
+                                    scene.argv_of(os.path.join(d, "prof")))
             table = prof.key_averages().table(sort_by="cuda_time_total",
                                               row_limit=40)
             path = os.path.join(args.profile_dir,
@@ -1382,12 +1260,8 @@ def main() -> int:
                 fh.write(f"{card}\nwall under profiler {prof_wall:.3f} s\n")
                 fh.write(table)
             log(f"profile: {path} (wall under profiler {prof_wall:.3f} s)")
-        return dict({k: scan[k] for k in SCAN_KEYS},
-                    launches=med["launches"], search=med["search"],
-                    close_launches=med["kernels"]["close"],
-                    far_launches=med["kernels"]["far"],
-                    far_win_launches=med["kernels"]["far_win"],
-                    far_win_rows=med["far_win_rows"], wall=med["wall"],
+        return dict({k: scan[k] for k in SCAN_KEYS}, **run_counts(c),
+                    far_win_rows=c["far_win_rows"], wall=med["wall"],
                     want=want, fused=fused)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
@@ -1499,19 +1373,15 @@ def main() -> int:
         s1 = os.path.join(work, "scene1")
         os.makedirs(s1)
         t0 = time.monotonic()
-        fa1, reads1, n1 = write_scene(s1, **SCENE1)
+        spec1 = scenes.make_scene1(s1)
+        n1 = spec1.n
         log(f"scene 1: {n1} reads over {SCENE1['chrom_len']} bp, built in "
             f"{time.monotonic() - t0:.1f} s")
 
-        def scene1_reports(want):
-            if b"ChrID" not in want.get("D", b""):
-                fail("scene 1: no deletion reported")
-
         def argv1(run):
-            return ["-f", fa1, "-p", reads1, *SCENE1_FLAGS,
-                    "-o", os.path.join(s1, run)]
+            return spec1.argv_of(os.path.join(s1, run))
 
-        scene1 = full_scene("scene 1", argv1, n1, "reads", scene1_reports)
+        scene1 = full_scene("scene 1", spec1, s1)
         max_err = max(max_err, scene1["max_abs_err"])
 
         mark("6")
@@ -1519,26 +1389,15 @@ def main() -> int:
         s2 = os.path.join(work, "scene2")
         os.makedirs(s2)
         t0 = time.monotonic()
-        paths2 = SCENE2.build(s2)
-        n2 = int(paths2["pairs"])
+        spec2 = scenes.make_scene2(s2)
+        n2 = spec2.n
         log(f"scene 2: {n2} read pairs over 2000000 bp (BAM + BreakDancer "
             f"calls), built in {time.monotonic() - t0:.1f} s")
-        want_digests = load_digests(SCENE2_DIGESTS)
-
-        def scene2_reports(want):
-            if digests(want) != want_digests:
-                fail("scene 2: the plain run's reports differ from the "
-                     "reference's digests")
-            if b"ChrID" not in want.get("D", b""):
-                fail("scene 2: no deletion reported")
 
         def argv2(run):
-            return bam_argv(SCENE2, paths2, os.path.join(s2, run))
+            return spec2.argv_of(os.path.join(s2, run))
 
-        scene2 = full_scene("scene 2", argv2, n2, "read pairs",
-                            scene2_reports)
-        if SCENE2.far_win and scene2["far_win_rows"] == 0:
-            fail("scene 2: _far_win_kernel searched no read")
+        scene2 = full_scene("scene 2", spec2, s2)
         max_err = max(max_err, scene2["max_abs_err"])
 
         mark("6b")
@@ -1733,7 +1592,7 @@ def main() -> int:
                     if got != base["want"]:
                         fail(f"{mlabel}: reports differ from the fused "
                              "kernel runs'")
-                    if key == "scene2" and digests(got) != want_digests:
+                    if key == "scene2" and digests(got) != spec2.want:
                         fail(f"{mlabel}: reports differ from the "
                              "reference's digests")
                     runs[cfg].append(dict(wall=wall, launches=launches,
@@ -1881,7 +1740,7 @@ def main() -> int:
         reset_counts()
         wall = run_hosts(argv, 2, "files")
         got = reports(prefix_of(argv))
-        if got != scene2["want"] or digests(got) != want_digests:
+        if got != scene2["want"] or digests(got) != spec2.want:
             fail(f"{label}: reports differ from phase 6 or the digests")
         ranks = rank_records(label, 2)
         if ranks[1]["windows"]:
@@ -2081,26 +1940,10 @@ def main() -> int:
                 f"to the NumPy oracle, {launches} shard launches by card "
                 f"{by_card}, {wall:.3f} s  [{card}]")
 
-        def new_and_parent(args, kw, out, label):
-            """The kernel's and the parent's device ms on one call, in turns
-            (new, parent, parent, new), the parent's output held to
-            ``out``; the parent's ms is None where it was not built."""
-            def new():
-                return sharded_search_cuda.shard_partials_cuda(*args, **kw)
-            if parent_shard is None:
-                return device_ms(new, 10), None
-
-            def old():
-                return parent_shard(*args, **kw)
-            if not all(torch.equal(a, b) for a, b in zip(old(), out)):
-                fail(f"{label}: the parent's kernel disagrees with this "
-                     "kernel")
-            a1, b1 = device_ms(new, 10), device_ms(old, 10)
-            b2, a2 = device_ms(old, 10), device_ms(new, 10)
-            return (a1 + a2) / 2, (b1 + b2) / 2
-
-        def fmt_ms(ms):
-            return "not measured" if ms is None else f"{ms:.4f} ms"
+        def shard_ms(args, kw):
+            """The shard kernel's device ms on one call."""
+            return device_ms(lambda: sharded_search_cuda.shard_partials_cuda(
+                *args, **kw), 10)
 
         # c. full width: phase 3b's batch (8,192 reads x 4 lanes, w =
         # 32768) at (1, 1) and (1, 4) over cuda:0, against K8's anchors
@@ -2157,7 +2000,7 @@ def main() -> int:
             # rows (in chunks, each held against the kernel's rows), bound
             shards = []
             for args, kw, out in calls:
-                ms_k, parent_ms = new_and_parent(args, kw, out, label)
+                ms_k = shard_ms(args, kw)
                 rows = args[1].shape[0]
                 plain_ms, err = 0.0, 0
                 for lo in range(0, rows, SHARD_PLAIN_ROWS):
@@ -2174,28 +2017,19 @@ def main() -> int:
                         o = o[lo:lo + SHARD_PLAIN_ROWS]
                         err = max(err, int((w.long() - o.long()).abs().max()))
                     del want
-                bound, bound_by, seeded, walked, earlier = shard_bound(
-                    args, kw, out)
+                bound, bound_by, seeded, walked = shard_bound(args, kw, out)
                 shards.append(dict(ms=ms_k, plain_ms=plain_ms, err=err,
-                                   bound_ms=bound, bound_by=bound_by,
-                                   bound_earlier_ms=earlier,
-                                   parent_ms=parent_ms))
+                                   bound_ms=bound, bound_by=bound_by))
                 k9_err = max(k9_err, err)
                 log(f"{label} shard off={kw['off']} w_local={kw['w_local']}"
-                    f" rows={rows}: kernel {ms_k:.4f} ms, parent's kernel "
-                    f"{fmt_ms(parent_ms)}, plain twin "
+                    f" rows={rows}: kernel {ms_k:.4f} ms, plain twin "
                     f"{plain_ms:.3f} ms, bound {bound:.4f} ms ({bound_by}; "
                     f"{seeded} seeded candidates walking {walked} steps, "
                     f"{SHARD_SEED_OPS_PER_WORD} int32 operations per 4 "
                     f"candidates, {SHARD_PATTERN_OPS} per seeded candidate, "
                     f"{SHARD_STEP_OPS} per step walked after step "
-                    f"{SHARD_PATTERN_STEPS}), {bound / ms_k:.1%} of it; the "
-                    f"earlier count ({EARLIER_SHARD_SEED_OPS} per candidate, "
-                    f"{SHARD_STEP_OPS} per walked step) {earlier:.4f} ms, "
-                    f"{earlier / ms_k:.1%}; the parent's kernel at "
-                    + ("-" if parent_ms is None else
-                       f"{bound / parent_ms:.1%} / {earlier / parent_ms:.1%}")
-                    + f", max_abs_err={err}  [{card}]")
+                    f"{SHARD_PATTERN_STEPS}), {bound / ms_k:.1%} of it, "
+                    f"max_abs_err={err}  [{card}]")
             del calls
             if k9_err:
                 fail(f"{label}: shard kernel disagrees with its plain twin "
@@ -2259,7 +2093,7 @@ def main() -> int:
             fail("--backend jax searched no read on the card")
 
         # e. K8's small calls (the route's shard calls of phase 3b's 12-read
-        # batches): this kernel against the twin and the parent's kernel
+        # batches): this kernel against the twin, each call timed
         small = []
         for args, kw in small_calls:
             out = sharded_search_cuda.shard_partials_cuda(*args, **kw)
@@ -2267,20 +2101,16 @@ def main() -> int:
             err = max(int((a.long() - b.long()).abs().max())
                       for a, b in zip(out, want))
             k9_err = max(k9_err, err)
-            ms_k, parent_ms = new_and_parent(args, kw, out, "K8 small call")
-            bound, bound_by, seeded, walked, earlier = shard_bound(args, kw,
-                                                                   out)
+            ms_k = shard_ms(args, kw)
+            bound, bound_by, seeded, walked = shard_bound(args, kw, out)
             small.append(dict(w=kw["w_local"], rows=args[1].shape[0],
-                              ms=ms_k, parent_ms=parent_ms, bound_ms=bound,
-                              bound_earlier_ms=earlier))
+                              ms=ms_k, bound_ms=bound))
             log(f"K8 small call w={kw['w_local']} rows={args[1].shape[0]} "
                 f"nl={kw['nl']} (blocks per row "
                 f"{sharded_search_cuda.row_splits(args[1].shape[0], kw['w_local'])}"
-                f"): kernel {ms_k:.4f} ms, parent's kernel "
-                f"{fmt_ms(parent_ms)}, bound {bound:.4f} ms ({bound_by}; "
-                f"{seeded} seeded candidates walking {walked} steps; the "
-                f"earlier count {earlier:.4f} ms), max_abs_err={err}  "
-                f"[{card}]")
+                f"): kernel {ms_k:.4f} ms, bound {bound:.4f} ms ({bound_by}; "
+                f"{seeded} seeded candidates walking {walked} steps), "
+                f"max_abs_err={err}  [{card}]")
         if k9_err:
             fail(f"K8 small calls: shard kernel disagrees with its twin "
                  f"(max {k9_err})")
@@ -2321,7 +2151,7 @@ def main() -> int:
             if got != base["want"]:
                 fail(f"{label} --backend jax: reports differ from the fused "
                      "kernel runs'")
-            if key == "scene2" and digests(got) != want_digests:
+            if key == "scene2" and digests(got) != spec2.want:
                 fail(f"{label} --backend jax: reports differ from the "
                      "reference's digests")
             if launches == 0:
@@ -2340,29 +2170,26 @@ def main() -> int:
             for pname, sec in sorted(phases.items(),
                                      key=lambda kv: -kv[1])[:10]:
                 log(f"  phase {pname:<52s} {sec:9.3f} s  [{card}]")
-            # the largest call: against the twin, timed beside the parent's
+            # the largest call: against the twin, timed
             args, kw, out = largest.pop("call")
             want = sss.shard_partials_ref(*args, **kw)
             err = max(int((a.long() - b.long()).abs().max())
                       for a, b in zip(out, want))
             k9_err = max(k9_err, err)
-            ms_k, parent_ms = new_and_parent(args, kw, out, label)
-            bound, bound_by, seeded, walked, earlier = shard_bound(args, kw,
-                                                                   out)
+            ms_k = shard_ms(args, kw)
+            bound, bound_by, _seeded, _walked = shard_bound(args, kw, out)
             log(f"{label} --backend jax: largest of {largest['calls']} shard "
                 f"calls, {args[1].shape[0]} rows x {kw['nl']} lanes, w="
-                f"{kw['w_local']}: kernel {ms_k:.4f} ms, parent's kernel "
-                f"{fmt_ms(parent_ms)}, plain twin equal (max_abs_err={err}), "
-                f"bound {bound:.4f} ms ({bound_by}), {bound / ms_k:.1%} of "
-                f"it; the earlier count {earlier:.4f} ms  [{card}]")
+                f"{kw['w_local']}: kernel {ms_k:.4f} ms, plain twin equal "
+                f"(max_abs_err={err}), bound {bound:.4f} ms ({bound_by}), "
+                f"{bound / ms_k:.1%} of it  [{card}]")
             if err:
                 fail(f"{label} --backend jax: shard kernel disagrees with "
                      f"its twin (max {err})")
             jax_paths[f"{key}_jax"] = dict(
                 launches=launches, wall=wall, legacy_rows=rows,
                 largest=dict(rows=int(args[1].shape[0]), nl=kw["nl"],
-                             w=kw["w_local"], ms=ms_k, parent_ms=parent_ms,
-                             bound_ms=bound, bound_earlier_ms=earlier))
+                             w=kw["w_local"], ms=ms_k, bound_ms=bound))
             del args, want, out
             torch.cuda.empty_cache()
 
@@ -2371,40 +2198,31 @@ def main() -> int:
     torch.cuda.empty_cache()
     tools = {name: run_tool(name, module, argv, card)
                for name, module, argv in TOOLS}
-    check_tools(tools, scene1["search"], scene2["search"])
+    check_tools(tools)
 
     mark("12")
     # ---- 12. scene 3 once through the CLI: three windows of BAM pairs with
     # BreakDancer calls, every scan call held against the plain version
-    from pindel_tpu_torch import bench
     with tempfile.TemporaryDirectory(prefix="chip_smoke_scene3_") as s3:
         t0 = time.monotonic()
-        scene3_spec = bench.build_scene3(s3)
+        scene3_spec = scenes.make_scene3(s3)
         log(f"scene 3: {scene3_spec.n} read pairs over 15000000 bp (BAM + "
             f"BreakDancer calls, -w 5), built in "
             f"{time.monotonic() - t0:.1f} s")
-        reset_counts()
         engine_jax.PLAIN_ON_CARD = 0
-        run3, fused3 = recorded(lambda: bench.run(
-            scene3_spec, os.path.join(s3, "run"), torch.device("cuda:0")))
+        run3, fused3 = recorded(lambda: scenes.run_scene(
+            scene3_spec, os.path.join(s3, "run"), dev))
         c3 = run3["counters"]
-        bad = bench.problems(scene3_spec, [run3], kernel=True)
-        if bad:
-            fail(f"scene 3: {bad}")
+        k4_calls3 = sum(c[0] == "_far_win_kernel" for c in fused3)
+        gate("scene 3", scene3_spec, [run3])
+        check_path("scene 3", c3["far_win_rows"], k4_calls3)
         if engine_jax.PLAIN_ON_CARD:
             fail(f"scene 3: the plain _search_kernel ran "
                  f"{engine_jax.PLAIN_ON_CARD} times on the card")
-        k4_calls3 = sum(c[0] == "_far_win_kernel" for c in fused3)
-        if c3["scan_launches"]:
-            fail(f"scene 3: the standalone scan launched "
-                 f"{c3['scan_launches']} times on the CLI path")
-        if not k4_calls3 or c3["far_win_launches"] != k4_calls3:
-            fail(f"scene 3: pt_far_win launched {c3['far_win_launches']} "
-                 f"times for {k4_calls3} K4 calls")
         log(f"scene 3: wall {run3['wall']:.3f} s (first use), "
             f"{scene3_spec.n / run3['wall']:.1f} read pairs/s, reports "
             f"equal to the reference's digests, fallback "
-            f"{g_fallback.fallback}/{g_fallback.total}, windows {c3['windows']} (visited "
+            f"{run3['fallback']:.6f}, windows {c3['windows']} (visited "
             f"{c3['windows_visited']}), search kernel launches "
             f"{c3['launches']} (standalone scan {c3['scan_launches']}, "
             f"pt_close/pt_far/pt_far_win {c3['fused_launches']}: "
@@ -2431,15 +2249,8 @@ def main() -> int:
         whole["scene3"] = check_fused("scene 3", fused3)
         k4_tail = {"scene3": largest_k4_tail("scene 3", fused3)}
         del fused3
-    got = tools["profile_bench_scene3"]["launches"]
-    if got != c3["launches"]:
-        fail(f"profile_bench_scene3: scene 3 search kernel launches {got}, "
-             f"phase 12 {c3['launches']}")
-    scene3 = dict({k: scan3[k] for k in SCAN_KEYS},
-                  launches=c3["scan_launches"],
-                  close_launches=c3["close_launches"],
-                  far_launches=c3["far_launches"],
-                  far_win_launches=c3["far_win_launches"], wall=run3["wall"],
+    scene3 = dict({k: scan3[k] for k in SCAN_KEYS}, **run_counts(c3),
+                  wall=run3["wall"],
                   far_win_rows=c3["far_win_rows"],
                   legacy_rows=c3["legacy_rows"],
                   windows=c3["windows"], peak_mib=c3["peak_mib"])
@@ -2472,12 +2283,6 @@ def main() -> int:
                      f"state ({state}) above the first region's "
                      f"{rows[0]['allocated']}")
 
-    def run_counts(c):
-        return dict(launches=c["scan_launches"],
-                    close_launches=c["close_launches"],
-                    far_launches=c["far_launches"],
-                    far_win_launches=c["far_win_launches"])
-
     scene4_paths = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_scene4_") as s4:
         t0 = time.monotonic()
@@ -2492,35 +2297,29 @@ def main() -> int:
         regions4 = {"scene4": ["chr1", "chr2", "chr3", "chrE"],
                     "scene4_bed": ["chr1", "chr1", "chr3"],
                     "scene4_c": ["chr2"]}
-        specs4 = {name: bench.bam_scene(
+        specs4 = {name: scenes.bam_scene(
             name, paths4, n4, want4[name], windows=windows4[name],
             spec=SCENE4_RUNS[name],
             oracle_reads=int(paths4["ctx_reads"]) if name == "scene4"
             else None) for name in SCENE4_RUNS}
 
-        def bench_run(name, prefix):
-            return bench.run(specs4[name], os.path.join(s4, prefix),
-                             torch.device("cuda:0"))
+        def scene4_run(name, prefix):
+            """A recorded run of ``name`` under ``prefix``, gated."""
+            r = scenes.run_scene(specs4[name], os.path.join(s4, prefix), dev)
+            gate(f"{name} {prefix}", specs4[name], [r])
+            return r
 
-        # a. scene4 recorded (first use), then again with the region log
-        reset_counts()
+        # a. scene4 recorded (first use), then again with the region log;
+        # K4 launched once a K4 call in each
         engine_jax.PLAIN_ON_CARD = 0
-        run4, fused4 = recorded(lambda: bench_run("scene4", "rec"))
+        run4, fused4 = recorded(lambda: scene4_run("scene4", "rec"))
         k4_calls4 = sum(c[0] == "_far_win_kernel" for c in fused4)
+        check_path("scene 4 recorded", run4["counters"]["far_win_rows"],
+                   k4_calls4)
         with region_log() as rows4:
-            warm4 = bench_run("scene4", "warm")
-        for label, r in (("scene 4 recorded", run4),
-                         ("scene 4 warm", warm4)):
-            bad = bench.problems(specs4["scene4"], [r], kernel=True)
-            if bad:
-                fail(f"{label}: {bad}")
-            c = r["counters"]
-            if c["scan_launches"]:
-                fail(f"{label}: the standalone scan launched "
-                     f"{c['scan_launches']} times on the CLI path")
-            if not k4_calls4 or c["far_win_launches"] != k4_calls4:
-                fail(f"{label}: pt_far_win launched {c['far_win_launches']} "
-                     f"times for {k4_calls4} K4 calls")
+            warm4 = scene4_run("scene4", "warm")
+        check_path("scene 4 warm", warm4["counters"]["far_win_rows"],
+                   k4_calls4)
         if engine_jax.PLAIN_ON_CARD:
             fail(f"scene 4: the plain _search_kernel ran "
                  f"{engine_jax.PLAIN_ON_CARD} times on the card")
@@ -2561,12 +2360,8 @@ def main() -> int:
 
         # b. the BED regions and the -c region
         for name in ("scene4_bed", "scene4_c"):
-            reset_counts()
             with region_log() as rows:
-                r = bench_run(name, name)
-            bad = bench.problems(specs4[name], [r], kernel=True)
-            if bad:
-                fail(f"{name}: {bad}")
+                r = scene4_run(name, name)
             c = r["counters"]
             got = reports(os.path.join(s4, name))
             if got.get("INT") or got["INT_final"] != b"":
@@ -2649,10 +2444,6 @@ def main() -> int:
         k4_tail["scene4"] = largest_k4_tail("scene 4", fused4)
         del fused4
         torch.cuda.empty_cache()
-    got = tools["profile_bench_scene4"]["launches"]
-    if got != run4["counters"]["launches"]:
-        fail(f"profile_bench_scene4: scene 4 search kernel launches {got}, "
-             f"phase 13 {run4['counters']['launches']}")
 
     loaded = reference_modules()
     if loaded:
@@ -2704,11 +2495,8 @@ def main() -> int:
     k9_paths = {f"full_wp{wp}": dict(
         launches=v["launches"], wall=v["wall"],
         ms=sum(x["ms"] for x in v["shards"]),
-        parent_ms=(None if parent_shard is None else
-                   sum(x["parent_ms"] for x in v["shards"])),
         plain_ms=sum(x["plain_ms"] for x in v["shards"]),
-        bound_ms=sum(x["bound_ms"] for x in v["shards"]),
-        bound_earlier_ms=sum(x["bound_earlier_ms"] for x in v["shards"]))
+        bound_ms=sum(x["bound_ms"] for x in v["shards"]))
         for wp, v in k9_full.items()}
     k9_paths["k9_backend_small_scene"] = dict(
         launches=k9_launches - sum(v["launches"] for v in k9_full.values()))
@@ -2725,9 +2513,8 @@ def main() -> int:
         replaces="pindel_tpu/parallel/mesh.py:46",
         also_replaces="pindel_tpu/ops/engine_jax.py:48",
         launches=sum(v["launches"] for v in k9_paths.values()),
-        max_abs_err=k9_err, ms=top["ms"], parent_ms=top["parent_ms"],
-        plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
-        bound_by=top["bound_by"], bound_earlier_ms=top["bound_earlier_ms"],
+        max_abs_err=k9_err, ms=top["ms"], plain_ms=top["plain_ms"],
+        bound_ms=top["bound_ms"], bound_by=top["bound_by"],
         library_ms=None, paths=k9_paths))
     # K2, K3 and K4 at the largest call of each over scenes 1-4 (phases 6b,
     # 12 and 13), timed in turns with the composition they replaced

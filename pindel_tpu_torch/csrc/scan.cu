@@ -48,8 +48,8 @@
 //   registers, K = ceil(candidates / 32) picked per chunk from 1..kMaxK, so
 //   a row of 96 seeds walks 3 slots per lane and not kMaxK.  kMaxK and the
 //   register cap (kMinBlocks warps resident per SM) trade instruction-level
-//   parallelism against warps in flight; scan_bench.py sweeps both
-//   (SCAN_MAX_K, SCAN_MIN_BLOCKS) and PERF.md keeps its numbers.
+//   parallelism against warps in flight; both are set at build time
+//   (SCAN_MAX_K, SCAN_MIN_BLOCKS).
 // * Four steps per shared load: each candidate reads four tile bytes as one
 //   word (a funnel shift of two aligned words, the later one kept for the
 //   next four steps), XORs them with four query bytes and turns each

@@ -21,6 +21,12 @@ tests/test_torch_bench.py --write-scene1-digests``, ``PYTHONPATH=. python
 tests/test_torch_bam.py --write-scene2-digests``, ``PYTHONPATH=. python
 tests/test_torch_scene3.py --write-scene3-digests`` and ``PYTHONPATH=.
 python tests/test_torch_scene4.py --write-scene4-digests``).
+
+``SCENES`` builds scenes 1-4 at full size as ``Scene`` objects;
+``run_scene`` is the one recorded run of a scene through the port's CLI
+(its wall, report digests and counters) and ``problems`` the one gate over
+such runs, which chip_smoke.py, the scene tests and
+``tools/kernel_bench`` share.
 """
 from __future__ import annotations
 
@@ -28,7 +34,7 @@ import dataclasses
 import hashlib
 import json
 import os
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -843,6 +849,187 @@ SCENE4_RUNS = {
                          far_win=True),
 }
 SCENE4 = SCENE4_RUNS["scene4"]
+
+
+# ------------------------------------------ the recorded run and its gate
+# a larger share of reads re-run on the host oracle is a silent speed cliff
+MAX_FALLBACK = 0.01
+
+
+@dataclasses.dataclass
+class Scene:
+    """A built scene as ``run_scene`` runs it: its name, unit, size, its
+    CLI run (output prefix -> arguments, ``--device`` left out), the sha256
+    of the reference's reports, by suffix, whether a kernel run must send
+    rows through ``_far_win_kernel`` (BreakDancer calls), the windows over
+    its chromosomes' bases it must span, and the most reads the
+    cross-chromosome route may take, which must take at least one (None:
+    neither checked)."""
+
+    name: str
+    unit: str
+    n: int
+    argv_of: Callable[[str], List[str]]
+    want: Dict[str, str]
+    far_win: bool = False
+    windows: Optional[int] = None
+    oracle_reads: Optional[int] = None
+
+
+def text_scene(name: str, fa: str, reads_txt: str, n: int,
+               want: Dict[str, str]) -> Scene:
+    """A pindel-text scene run at scene 1's flags."""
+    return Scene(name, "reads", n,
+                 lambda prefix: ["-f", fa, "-p", reads_txt, *SCENE1_FLAGS,
+                                 "--backend", "fused", "-o", prefix], want)
+
+
+def bam_scene(name: str, paths: Dict[str, str], n: int,
+              want: Dict[str, str], windows: Optional[int] = None,
+              spec: BamScene = SCENE2,
+              oracle_reads: Optional[int] = None) -> Scene:
+    """A BAM + BreakDancer scene of ``n`` read pairs (``paths`` as
+    ``spec.build`` gives them) run at ``spec``'s flags (scene 2's by
+    default)."""
+    return Scene(name, "read pairs", n,
+                 lambda prefix: bam_argv(spec, paths, prefix)
+                 + ["--backend", "fused"], want, far_win=True,
+                 windows=windows, oracle_reads=oracle_reads)
+
+
+def make_scene1(d: str) -> Scene:
+    fa, reads_txt, n = write_scene(d, **SCENE1)
+    return text_scene("scene1", fa, reads_txt, n,
+                      load_digests(SCENE1_DIGESTS))
+
+
+def make_scene2(d: str) -> Scene:
+    paths = SCENE2.build(d)
+    return bam_scene("scene2", paths, int(paths["pairs"]),
+                     load_digests(SCENE2_DIGESTS))
+
+
+def make_scene3(d: str) -> Scene:
+    paths = SCENE3.build(d)
+    return bam_scene("scene3", paths, int(paths["pairs"]),
+                     load_digests(SCENE3_DIGESTS), windows=3)
+
+
+def make_scene4(d: str) -> Scene:
+    paths = SCENE4.build(d)
+    return bam_scene("scene4", paths, int(paths["pairs"]),
+                     load_digests(SCENE4_DIGESTS)["scene4"], windows=5,
+                     spec=SCENE4, oracle_reads=int(paths["ctx_reads"]))
+
+
+# scenes 1-4 at full size, each built under a directory
+SCENES = {"scene1": make_scene1, "scene2": make_scene2,
+          "scene3": make_scene3, "scene4": make_scene4}
+
+
+def run_scene(scene: Scene, prefix: str, dev) -> dict:
+    """One recorded CLI run of ``scene`` on ``dev`` (a torch device): its
+    wall (device work included), the digests of its reports, whether
+    ``_D`` is empty, the search kernels' launches, the fallback ratio, the
+    timer phases and the run's ``counters``: launches (the scan's and
+    each fused kernel's apart), windows visited and with bases (and per
+    window its reads and the seconds at which it was read in, staged and
+    reported), ``_far_win_kernel`` rows, legacy per-lane rows, the reads
+    the cross-chromosome route took and of them those K4 searched on a
+    partner backend and those the oracle searched, shard kernel launches
+    and peak card memory in MiB.  The kernels' counts are reset at its
+    start and hold the run's counts after it."""
+    import time
+
+    import torch
+
+    from pindel_tpu_torch.__main__ import main as port_main
+    from pindel_tpu_torch.ops import (engine_fused, engine_jax, fused_cuda,
+                                      scan_cuda, sharded_search_cuda)
+    from pindel_tpu_torch.profiling import g_fallback, g_timer, g_xchrom
+    from pindel_tpu_torch.tools import measure
+    fused_cuda.reset_launches()
+    sharded_search_cuda.LAUNCHES = 0
+    engine_fused.FAR_WIN_ROWS = 0
+    engine_jax.LEGACY_ROWS = 0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    with measure.window_log() as windows, measure.oracle_reads() as oracle:
+        t0 = time.monotonic()
+        rc = port_main(scene.argv_of(prefix) + ["--device", str(dev)])
+        measure.sync(dev)
+        wall = time.monotonic() - t0
+    if rc != 0:
+        raise RuntimeError(f"{scene.name}: the CLI returned {rc}")
+    got = reports(prefix)
+    counters = dict(
+        launches=fused_cuda.search_launches(),
+        scan_launches=scan_cuda.LAUNCHES,
+        fused_launches=fused_cuda.LAUNCHES,
+        close_launches=fused_cuda.LAUNCHES_BY_KERNEL["close"],
+        far_launches=fused_cuda.LAUNCHES_BY_KERNEL["far"],
+        far_win_launches=fused_cuda.LAUNCHES_BY_KERNEL["far_win"],
+        windows=sum(w["start"] < w["end"] for w in windows),
+        windows_visited=len(windows),
+        far_win_rows=engine_fused.FAR_WIN_ROWS,
+        legacy_rows=engine_jax.LEGACY_ROWS,
+        oracle_reads=oracle["reads"],
+        xchrom_device=g_xchrom.device,
+        xchrom_oracle=g_xchrom.oracle,
+        shard_launches=sharded_search_cuda.LAUNCHES,
+        peak_mib=(torch.cuda.max_memory_allocated(dev) / 2 ** 20
+                  if dev.type == "cuda" else None),
+        by_window=windows)
+    return dict(wall=wall, digests=digests(got), d_empty=not got.get("D"),
+                launches=fused_cuda.search_launches(),
+                fallback=g_fallback.ratio(),
+                phases=g_timer.items(), counters=counters)
+
+
+def problems(scene: Scene, runs: List[dict], kernel: bool) -> List[str]:
+    """What fails the gate over ``runs`` (``run_scene``'s) of ``scene``;
+    ``kernel``: the runs must have launched the search kernels (a fused run
+    on a card).  Every run: reports equal to the reference's digests, a
+    non-empty ``_D``, at most MAX_FALLBACK of the reads on the host oracle,
+    the scene's windows, K4 rows on a BreakDancer scene's kernel run,
+    ``pt_far_win`` launched wherever K4 searched rows, and the reads the
+    cross-chromosome route took within the scene's bound; over the runs,
+    equal search kernel launches, and on a kernel run more than none."""
+    out = []
+    for i, r in enumerate(runs):
+        if r["digests"] != scene.want:
+            diff = sorted(k for k in set(r["digests"]) | set(scene.want)
+                          if r["digests"].get(k) != scene.want.get(k))
+            out.append(f"{scene.name} run {i}: reports differ from the "
+                       f"reference's: {diff}")
+        if r["d_empty"]:
+            out.append(f"{scene.name} run {i}: the _D report is empty")
+        if r["fallback"] > MAX_FALLBACK:
+            out.append(f"{scene.name} run {i}: fallback ratio "
+                       f"{r['fallback']} above {MAX_FALLBACK}")
+        c = r.get("counters", {})
+        if scene.windows is not None and c.get("windows") != scene.windows:
+            out.append(f"{scene.name} run {i}: {c.get('windows')} windows, "
+                       f"not {scene.windows}")
+        if kernel and scene.far_win and not c.get("far_win_rows"):
+            out.append(f"{scene.name} run {i}: _far_win_kernel searched "
+                       "no row")
+        if kernel and c.get("far_win_rows") and not c.get(
+                "far_win_launches"):
+            out.append(f"{scene.name} run {i}: K4 rows "
+                       f"{c['far_win_rows']} but pt_far_win never launched")
+        if scene.oracle_reads is not None and not (
+                0 < c.get("oracle_reads", 0) <= scene.oracle_reads):
+            out.append(f"{scene.name} run {i}: {c.get('oracle_reads')} "
+                       "reads taken across chromosomes, not "
+                       f"1 to {scene.oracle_reads}")
+    launches = {r["launches"] for r in runs}
+    if len(launches) != 1:
+        out.append(f"{scene.name}: search kernel launches differ between "
+                   f"runs: {[r['launches'] for r in runs]}")
+    if kernel and 0 in launches:
+        out.append(f"{scene.name}: the search kernels never launched")
+    return out
 
 
 def two_region_lanes(seed: int, n_reads: int, scale: int):

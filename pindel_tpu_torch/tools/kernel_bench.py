@@ -29,11 +29,12 @@ which shows the cost of a round by its window.
 
 ``--far-win-tail`` times K4's critical path instead: for the largest K4
 call of scenes 3 and 4 (each built in a temporary directory and run once
-through ``bench.run``, its K4 calls recorded), this tool's own K4 call
-(``far_window``) and the skewed cases of ``testing/fused_cases.py`` at
-4,000 narrow reads, ``measure.far_win_tail``'s figures (the reads' widths
-and seeded lanes, the bucket, the widest 1%'s share of the operations, the
-floor the widest read sets) and K4 timed on (a) the whole call, (b) its
+through ``testing/scenes.py:run_scene``, its K4 calls recorded), this
+tool's own K4 call (``far_window``) and the skewed cases of
+``testing/fused_cases.py`` at 4,000 narrow reads, ``measure.far_win_tail``'s
+figures (the reads' widths and seeded lanes, the bucket, the widest 1%'s
+share of the operations, the floor the widest read sets) and K4 timed on
+(a) the whole call, (b) its
 widest read alone and (c) the call without its widest 1% of reads, each
 with CUDA events and queued behind a spin of the card, in turns.
 
@@ -171,11 +172,11 @@ TAIL_SKEWED_READS = 4000
 
 def largest_far_win_calls(dev):
     """The largest K4 call of each of TAIL_SCENES, recorded from one run of
-    the scene through ``bench.run`` on ``dev``: name -> (chromcat, payload,
-    maxmm, static)."""
+    the scene through ``scenes.run_scene`` on ``dev``: name -> (chromcat,
+    payload, maxmm, static)."""
     import tempfile
 
-    from pindel_tpu_torch import bench
+    from pindel_tpu_torch.testing import scenes
     real = engine_fused._far_win_kernel
     out = {}
     for scene in TAIL_SCENES:
@@ -188,12 +189,12 @@ def largest_far_win_calls(dev):
         with tempfile.TemporaryDirectory(prefix=f"kernel_bench_{scene}_") \
                 as d:
             t0 = time.monotonic()
-            spec = bench.SCENES[scene](d)
+            spec = scenes.SCENES[scene](d)
             log(f"{scene}: {spec.n} read pairs, built in "
                 f"{time.monotonic() - t0:.1f} s")
             engine_fused._far_win_kernel = record
             try:
-                bench.run(spec, os.path.join(d, "run"), dev)
+                scenes.run_scene(spec, os.path.join(d, "run"), dev)
             finally:
                 engine_fused._far_win_kernel = real
         if not calls:

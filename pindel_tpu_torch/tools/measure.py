@@ -1,12 +1,11 @@
 """What the port's measurement scripts share: the card's published peaks,
-the scan kernel's bound, the fused kernels' bound, the card line, CUDA event timing, the
-device-busy share of a profiled run, the record of a run's windows and
-regions, and the count of the reads it sent to the oracle across
-chromosomes.
+the scan kernel's bound, the fused kernels' bound, the card line, CUDA event
+timing, the record of a run's windows and regions, and the count of the
+reads it sent across chromosomes.
 
-Used by ``chip_smoke.py`` and the tools (``pindel_tpu_torch.bench``,
-``pindel_tpu_torch.tools.*``).  A tool runs on the card unless it is
-asked for the CPU (``--device cpu``); it takes its device from
+Used by ``chip_smoke.py``, ``testing/scenes.py:run_scene`` and the tools
+(``pindel_tpu_torch.tools.*``).  A tool runs on the card unless it is asked
+for the CPU (``--device cpu``); it takes its device from
 ``pipeline.resolve_device``, which raises where no card is visible, so no
 measurement falls back to the CPU.
 """
@@ -314,38 +313,6 @@ def far_win_tail(chromcat, payload, maxmm, static):
                    if total else 0.0),
         floor_ms=float(lane_ops.max()) / WARP_INT32_OPS * 1e3,
         mean_read_ms=total / b / 2 / WARP_INT32_OPS * 1e3)
-
-
-def device_busy(prof, wall_s: float):
-    """Device time of a ``torch.profiler`` trace (the union of its device
-    events' intervals, so overlapping streams count once) and its share of
-    ``wall_s``; (0.0, None) where the trace holds no device event (a CPU
-    run: not measured)."""
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    if not spans:
-        return 0.0, None
-    busy_us = 0.0
-    end = float("-inf")
-    for lo, hi in spans:
-        if hi > end:
-            busy_us += hi - max(lo, end)
-            end = hi
-    return busy_us / 1e6, busy_us / 1e6 / wall_s
-
-
-def top_device_kernels(prof, n: int = 10):
-    """The ``n`` device kernels of a trace with the most total time:
-    (name, calls, total ms), longest first."""
-    totals = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            calls, us = totals.get(e.name, (0, 0.0))
-            totals[e.name] = (calls + 1,
-                              us + e.time_range.end - e.time_range.start)
-    top = sorted(totals.items(), key=lambda kv: -kv[1][1])[:n]
-    return [(name, calls, us / 1e3) for name, (calls, us) in top]
 
 
 @contextlib.contextmanager

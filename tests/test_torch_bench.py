@@ -1,12 +1,14 @@
-"""The port's measurement tools on the CPU (``pindel_tpu_torch.bench`` and
-``pindel_tpu_torch.tools.{kernel,profile,multihost}_bench``): on small
-scenes they run through the same code as on the card, write the same
-reports as the repository's ``bench.py`` (the JAX package on the CPU),
-print their JSON line, fail their gate when a report changes, and raise
-without a card unless asked for the CPU.  Scene 1's reference digests
-(``testing/scene1_digests.json``) are checked by a slow test and rewritten
-with ``PYTHONPATH=. python tests/test_torch_bench.py
+"""The port's measurement code on the CPU: the recorded scene run and its
+gate (``testing/scenes.py:run_scene`` and ``problems``) and the tools
+(``pindel_tpu_torch.tools.{kernel_bench,multihost_bench,span_report}``).
+On small scenes they run through the same code as on the card, write the
+same reports as the repository's ``bench.py`` (the JAX package on the
+CPU), print their JSON line, fail the gate when a report changes or a rule
+is broken, and raise without a card unless asked for the CPU.  Scene 1's
+reference digests (``testing/scene1_digests.json``) are checked by a slow
+test and rewritten with ``PYTHONPATH=. python tests/test_torch_bench.py
 --write-scene1-digests`` (``python -m pindel_tpu --backend numpy``)."""
+import dataclasses
 import json
 import os
 import sys
@@ -22,14 +24,14 @@ sys.path.insert(0, REPO)
 import bench as reference_bench  # noqa: E402
 from pindel_tpu.__main__ import main as reference_main  # noqa: E402
 from pindel_tpu.ops import engine_fused as reference_fused  # noqa: E402
-from pindel_tpu_torch import bench  # noqa: E402
 from pindel_tpu_torch.testing import scenes  # noqa: E402
 from pindel_tpu_torch.testing.scan_cases import (BUCKET_LMAXES,  # noqa: E402
                                                  BUCKET_ROWS, W_BUCKETS,
                                                  KINDS, branch_case,
                                                  bucket_case)
+from pindel_tpu_torch.profiling import g_fallback  # noqa: E402
 from pindel_tpu_torch.tools import (kernel_bench, measure,  # noqa: E402
-                                    multihost_bench, profile_bench)
+                                    multihost_bench, span_report)
 from test_pallas_onchip import _case as onchip_case  # noqa: E402
 
 # one intra-op thread: the test workers share the machine's cores, and
@@ -38,13 +40,10 @@ torch.set_num_threads(1)
 
 SCENE1_COMMAND = ("PYTHONPATH=. python tests/test_torch_bench.py "
                   "--write-scene1-digests")
-# the keys of the bench's JSON line
-BENCH_KEYS = {"metric", "value", "unit", "runs", "best", "spread",
-              "fallback_ratio", "scene2_value", "scene2_runs",
-              "scene2_fallback_ratio", "correct", "layers", "launches",
-              "device"}
-COARSE = ("Reading in reads", "Matching close ends", "Searching far ends",
-          "Searching and reporting variations")
+# the span sums of span_report's JSON line
+SPAN_SUMS = ("root_s", "root_self_s", "coverage_s", "entry_s",
+             "device_wait_s", "oracle_read_pct", "upload_mb", "xchrom_s",
+             "interchrom_s")
 CPU = torch.device("cpu")
 
 
@@ -58,8 +57,8 @@ def one_thread_workers(monkeypatch):
 def small(tmp_path_factory):
     """A small pindel-text scene and a small BAM + BreakDancer scene, each
     with the reports of the repository's bench.py (``run_ours`` and
-    ``run_ours_bam``: the JAX package's fused backend on the CPU), as the
-    port's bench scenes with those reports' digests."""
+    ``run_ours_bam``: the JAX package's fused backend on the CPU), as
+    ``scenes.Scene`` objects with those reports' digests."""
     d = str(tmp_path_factory.mktemp("bench_small"))
     text_dir, bam_dir = os.path.join(d, "text"), os.path.join(d, "bam")
     os.makedirs(text_dir)
@@ -75,71 +74,52 @@ def small(tmp_path_factory):
     want_bam = scenes.reports(ref_bam)
     assert want_text["D"] and want_bam["D"]
     return dict(
-        scene1=bench.text_scene("scene1", fa, reads_txt, n,
-                                scenes.digests(want_text)),
-        scene2=bench.bam_scene("scene2", paths, int(paths["pairs"]),
-                               scenes.digests(want_bam)),
+        scene1=scenes.text_scene("scene1", fa, reads_txt, n,
+                                 scenes.digests(want_text)),
+        scene2=scenes.bam_scene("scene2", paths, int(paths["pairs"]),
+                                scenes.digests(want_bam)),
+        text_argv=["-f", fa, "-p", reads_txt, "-s"],
         reports=dict(scene1=want_text, scene2=want_bam))
-
-
-@pytest.fixture
-def small_scenes(small, monkeypatch):
-    """The bench's scenes replaced by the small ones."""
-    monkeypatch.setattr(bench, "SCENES", {
-        key: (lambda d, key=key: small[key]) for key in ("scene1", "scene2")})
-    return small
 
 
 def last_json(text: str) -> dict:
     return json.loads(text.strip().splitlines()[-1])
 
 
-# ------------------------------------------------------------------ bench
+# ------------------------------------------------- the recorded run, the gate
 @pytest.mark.parametrize("key", ["scene1", "scene2"])
 def test_bench_run_matches_reference_bench(small, key, tmp_path):
-    """(a) The port's bench run writes the reports bench.py's run_ours /
-    run_ours_bam write on the same files."""
+    """(a) ``scenes.run_scene`` writes the reports bench.py's run_ours /
+    run_ours_bam write on the same files, and the gate passes."""
     prefix = str(tmp_path / "port")
-    result = bench.run(small[key], prefix, CPU)
+    result = scenes.run_scene(small[key], prefix, CPU)
     assert scenes.reports(prefix) == small["reports"][key]
     assert result["digests"] == small[key].want
-    assert not bench.problems(small[key], [result], kernel=False)
-
-
-def test_bench_json_line(small_scenes, capsys):
-    """(b) The JSON line parses and has every key."""
-    assert bench.main(["--device", "cpu", "--runs", "2"]) == 0
-    line = last_json(capsys.readouterr().out)
-    assert BENCH_KEYS <= set(line)
-    assert line["correct"] is True
-    assert line["metric"] == "split-reads/s"
-    assert len(line["runs"]) == len(line["scene2_runs"]) == 2
-    assert line["value"] > 0 and line["scene2_value"] > 0
-    assert line["best"] >= line["value"] and line["spread"] >= 0
-    assert line["launches"] == {"scene1": 0, "scene2": 0}   # no card
-    for key in ("scene1", "scene2"):
-        assert set(COARSE) <= set(line["layers"][key])
-    assert line["device"] == "cpu (no card)"
+    assert result["wall"] > 0 and result["launches"] == 0     # no card
+    assert result["counters"]["windows"] == 1
+    assert not scenes.problems(small[key], [result], kernel=False)
 
 
 @pytest.mark.parametrize("fault", ["report", "fallback"])
-def test_bench_gate_fails(small_scenes, capsys, monkeypatch, fault):
-    """(c) A changed report, or a fallback ratio above 1%, makes the bench
-    exit 1 with ``"correct": false`` and a void value."""
+def test_bench_gate_fails(small, monkeypatch, fault, tmp_path):
+    """(c) A changed report, or a fallback ratio above 1%, in a recorded
+    run fails the gate on that rule alone."""
     if fault == "report":
+        real = scenes.reports
+
         def changed(prefix):
-            got = scenes.reports(prefix)
+            got = real(prefix)
             got["D"] += b"changed\n"
             return got
-        monkeypatch.setattr(bench, "reports", changed)
+        monkeypatch.setattr(scenes, "reports", changed)
     else:
-        monkeypatch.setattr(bench.g_fallback, "ratio", lambda: 0.02)
-    assert bench.main(["--device", "cpu", "--runs", "1"]) == 1
-    out = capsys.readouterr()
-    line = last_json(out.out)
-    assert line["correct"] is False
-    assert line["value"] == 0.0 and line["scene2_value"] == 0.0
-    assert "GATE FAILED" in out.err
+        monkeypatch.setattr(g_fallback, "ratio", lambda: 0.02)
+    scene = small["scene1"]
+    result = scenes.run_scene(scene, str(tmp_path / "port"), CPU)
+    bad = scenes.problems(scene, [result], kernel=False)
+    want = ("reports differ from the reference's: ['D']"
+            if fault == "report" else "fallback ratio 0.02 above 0.01")
+    assert len(bad) == 1 and want in bad[0], bad
 
 
 def test_bench_gate_rules(small):
@@ -147,11 +127,46 @@ def test_bench_gate_rules(small):
     never launched the kernel each fail the gate."""
     scene = small["scene1"]
     ok = dict(digests=scene.want, d_empty=False, fallback=0.0, launches=3)
-    assert not bench.problems(scene, [ok, ok], kernel=True)
-    assert bench.problems(scene, [dict(ok, d_empty=True)], kernel=False)
-    assert bench.problems(scene, [ok, dict(ok, launches=4)], kernel=True)
-    assert bench.problems(scene, [dict(ok, launches=0)], kernel=True)
-    assert not bench.problems(scene, [dict(ok, launches=0)], kernel=False)
+    assert not scenes.problems(scene, [ok, ok], kernel=True)
+    assert scenes.problems(scene, [dict(ok, d_empty=True)], kernel=False)
+    assert scenes.problems(scene, [ok, dict(ok, launches=4)], kernel=True)
+    assert scenes.problems(scene, [dict(ok, launches=0)], kernel=True)
+    assert not scenes.problems(scene, [dict(ok, launches=0)], kernel=False)
+
+
+# a run of a BreakDancer scene that passes every rule (three windows, K4
+# rows through pt_far_win, five reads across chromosomes of at most eight),
+# and per rule the counters that break it alone and the words of its line
+GOOD_COUNTERS = dict(windows=3, far_win_rows=12, far_win_launches=2,
+                     oracle_reads=5)
+BROKEN = {
+    "windows": (dict(windows=2), "2 windows, not 3"),
+    "far_win_never_launched": (dict(far_win_launches=0),
+                               "K4 rows 12 but pt_far_win never launched"),
+    "no_k4_rows": (dict(far_win_rows=0, far_win_launches=0),
+                   "_far_win_kernel searched no row"),
+    "route_reads_above": (dict(oracle_reads=9),
+                          "9 reads taken across chromosomes, not 1 to 8"),
+    "route_reads_none": (dict(oracle_reads=0),
+                         "0 reads taken across chromosomes, not 1 to 8"),
+}
+
+
+@pytest.mark.parametrize("rule", list(BROKEN))
+def test_gate_rule_trips_alone(small, rule):
+    """Each rule of ``scenes.problems`` that a scene's shape sets (its
+    windows, K4 on a BreakDancer scene's kernel run, ``pt_far_win`` for K4
+    rows, the cross-chromosome route's reads) fails a kernel run that
+    breaks it, and only that rule."""
+    scene = dataclasses.replace(small["scene2"], windows=3, oracle_reads=8)
+    ok = dict(digests=scene.want, d_empty=False, fallback=0.0, launches=7,
+              counters=GOOD_COUNTERS)
+    assert not scenes.problems(scene, [ok, ok], kernel=True)
+    counters, words = BROKEN[rule]
+    bad = scenes.problems(
+        scene, [ok, dict(ok, counters=dict(GOOD_COUNTERS, **counters))],
+        kernel=True)
+    assert bad == [f"scene2 run 1: {words}"]
 
 
 # ------------------------------------------------------------ kernel bench
@@ -238,24 +253,28 @@ def test_multihost_bench(capsys):
     assert 0 < worker["spawn_to_ready_s"] <= worker["spawn_to_first_window_s"]
 
 
-# ---------------------------------------------------------- profile bench
-def test_profile_bench(small_scenes, capsys, tmp_path):
-    """(f) On the CPU: the coarse timer phases, the trace, no device share."""
-    assert profile_bench.main(["--device", "cpu", "--scene", "1", "--runs",
-                               "2", "--trace", str(tmp_path)]) == 0
-    out = capsys.readouterr()
-    for phase in COARSE:
-        assert phase in out.err
-    line = last_json(out.out)
-    assert line["correct"] is True and len(line["runs"]) == 2
-    assert set(COARSE) <= set(line["layers"])
-    assert line["busy_share"] is None        # no device: not measured
-    assert os.path.exists(tmp_path / "trace_scene1.json")
+# ------------------------------------------------------------ span report
+def test_span_report_cli_args(small, capsys, tmp_path):
+    """(f) ``span_report --rounds 1 --device cpu -- <a small text scene's
+    CLI args>``: every pass's wall by mode, the span sums the benchmark's
+    readers take, and a non-empty span tree under the root span, also
+    written under ``--out``."""
+    assert span_report.main(["--rounds", "1", "--device", "cpu", "--out",
+                             str(tmp_path), "--", *small["text_argv"]]) == 0
+    line = last_json(capsys.readouterr().out)
+    assert line["tool"] == "span_report" and line["cell"] is None
+    assert {m: len(w) for m, w in line["walls"].items()} == {
+        "off": 2, "on": 2, "profiled": 2}
+    assert set(SPAN_SUMS) <= set(line)
+    assert line["root_s"] > 0 and line["entry_s"] > 0
+    assert line["upload_mb"] > 0 and line["device"] == "cpu (no card)"
+    assert line["tree"] and line["tree"][0][:2] == [0, "run: pass"]
+    assert all(row[2] >= 0 for row in line["tree"])
+    assert (tmp_path / "span_tree_cli_1.txt").read_text().strip()
 
 
 # ---------------------------------------------------------- without a card
-@pytest.mark.parametrize("tool", [bench, kernel_bench, profile_bench,
-                                    multihost_bench])
+@pytest.mark.parametrize("tool", [kernel_bench, multihost_bench])
 def test_tool_needs_a_card(tool):
     """Without --device cpu a tool raises where no card is visible; it
     does not run on the CPU."""
@@ -266,14 +285,14 @@ def test_tool_needs_a_card(tool):
 
 
 def test_tools_load_no_reference():
-    """In a fresh interpreter the four tools load no module of the JAX
-    package and no jax."""
+    """In a fresh interpreter the three tools and the scene module load no
+    module of the JAX package and no jax."""
     import subprocess
     code = ("import sys\n"
-            "import pindel_tpu_torch.bench\n"
+            "import pindel_tpu_torch.testing.scenes\n"
             "import pindel_tpu_torch.tools.kernel_bench\n"
             "import pindel_tpu_torch.tools.multihost_bench\n"
-            "import pindel_tpu_torch.tools.profile_bench\n"
+            "import pindel_tpu_torch.tools.span_report\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('pindel_tpu', 'jax', 'jaxlib')))\n")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(

@@ -3,12 +3,11 @@ pindel's ``colousingbd15`` run: BAM pairs with BreakDancer calls over
 three windows) on the CPU, cut to 600 kb at ``-w 0.2`` (three windows, two
 boundary events each, at the full scene's density): the port's reports
 byte-identical to the JAX package's ``fused`` backend, ``build_scene3``'s
-plan, and the bench's gate on a wrong scene-3 digest.  The full scene's
+plan, and the gate (``scenes.problems``) on a wrong scene-3 digest.  The full scene's
 reference digests (``testing/scene3_digests.json``) are checked by a slow
 test and rewritten with ``PYTHONPATH=. python tests/test_torch_scene3.py
 --write-scene3-digests`` (``python -m pindel_tpu --backend numpy``)."""
 import dataclasses
-import json
 import os
 import sys
 
@@ -16,7 +15,6 @@ import pytest
 import torch
 
 from pindel_tpu.__main__ import main as reference_main
-from pindel_tpu_torch import bench
 from pindel_tpu_torch.testing import scenes
 from pindel_tpu_torch.testing.scenes import SCENE2, SCENE3, bam_argv
 
@@ -38,8 +36,9 @@ def one_thread_workers(monkeypatch):
 
 
 def cut_scene(paths, want):
-    """The bench's scene 3 on the cut scene's ``paths``, at ``-w 0.2``."""
-    scene = bench.bam_scene("scene3", paths, int(paths["pairs"]), want,
+    """Scene 3 (``scenes.make_scene3``) on the cut scene's ``paths``, at
+    ``-w 0.2``."""
+    scene = scenes.bam_scene("scene3", paths, int(paths["pairs"]), want,
                             windows=3)
     return dataclasses.replace(
         scene, argv_of=lambda prefix, base=scene.argv_of:
@@ -55,13 +54,13 @@ def reference_reports(argv, backend: str = "fused"):
 @pytest.fixture(scope="module")
 def cut(tmp_path_factory):
     """The cut scene, the JAX package's fused reports on it, and one run
-    of it through the port's bench (the port's CLI on the CPU)."""
+    of it through ``scenes.run_scene`` (the port's CLI on the CPU)."""
     d = str(tmp_path_factory.mktemp("scene3_cut"))
     paths = scenes.build_scene3(d, chrom_len=CUT_LEN)
     want = reference_reports(bam_argv(SCENE3, paths, os.path.join(d, "jax"))
                              + CUT_FLAGS)
     scene = cut_scene(paths, scenes.digests(want))
-    port = bench.run(scene, os.path.join(d, "port"), CPU)
+    port = scenes.run_scene(scene, os.path.join(d, "port"), CPU)
     return dict(d=d, paths=paths, want=want, scene=scene, port=port,
                 got=scenes.reports(os.path.join(d, "port")))
 
@@ -82,8 +81,8 @@ def test_port_matches_jax_fused(cut):
     assert all(w["read_s"] <= w["staged_s"] <= w["done_s"]
                for w in c["by_window"])
     assert c["far_win_rows"] > 0 and c["legacy_rows"] == 0
-    assert cut["port"]["fallback"] <= bench.MAX_FALLBACK
-    assert not bench.problems(cut["scene"], [cut["port"]], kernel=False)
+    assert cut["port"]["fallback"] <= scenes.MAX_FALLBACK
+    assert not scenes.problems(cut["scene"], [cut["port"]], kernel=False)
 
 
 def test_boundary_events_reported(cut):
@@ -128,12 +127,20 @@ def test_build_scene3_plan(tmp_path):
         split_and_noise <= 40 * len(lines) + 4 * CUT_LEN // 1000
 
 
-def test_bench_gate_fails_on_a_scene3_digest(cut, tmp_path, monkeypatch,
-                                             capsys):
-    """``python -m pindel_tpu_torch.bench --device cpu`` with the cut scene
-    as scene 3 and one of its digests wrong exits 1 with ``"correct":
-    false``; scenes 1 and 2 (small ones, with the JAX package's digests)
-    pass their gates."""
+def test_bench_gate_fails_on_a_scene3_digest(cut, tmp_path):
+    """The gate over a recorded run of the cut scene with one of its
+    digests wrong fails on that report alone, and the run still counts
+    the scene's pairs, its three windows and its K4 rows; small scenes 1
+    and 2 (with the JAX package's digests) pass the gate."""
+    wrong = dataclasses.replace(cut["scene"],
+                                want=dict(cut["scene"].want, D="0" * 64))
+    run = scenes.run_scene(wrong, str(tmp_path / "wrong"), CPU)
+    assert wrong.n == int(cut["paths"]["pairs"])
+    assert run["counters"]["windows"] == 3
+    assert run["counters"]["far_win_rows"] > 0
+    bad = scenes.problems(wrong, [run], kernel=False)
+    assert bad == ["scene3 run 0: reports differ from the reference's: "
+                   "['D']"]
     text_dir, bam_dir = tmp_path / "text", tmp_path / "bam"
     text_dir.mkdir()
     bam_dir.mkdir()
@@ -144,27 +151,13 @@ def test_bench_gate_fails_on_a_scene3_digest(cut, tmp_path, monkeypatch,
     paths2 = scenes.build_bigdel(str(bam_dir))
     want2 = reference_reports(bam_argv(SCENE2, paths2,
                                        str(bam_dir / "ref")))
-    wrong = dict(cut["scene"].want, D="0" * 64)
-    small = dict(
-        scene1=bench.text_scene("scene1", fa, reads_txt, n,
-                                scenes.digests(want1)),
-        scene2=bench.bam_scene("scene2", paths2, int(paths2["pairs"]),
-                               scenes.digests(want2)),
-        scene3=cut_scene(cut["paths"], wrong))
-    monkeypatch.setattr(bench, "SCENES", {
-        key: (lambda d, key=key: small[key]) for key in small})
-    assert bench.main(["--device", "cpu", "--runs", "1"]) == 1
-    out = capsys.readouterr()
-    line = json.loads(out.out.strip().splitlines()[-1])
-    assert line["correct"] is False
-    assert line["value"] == line["scene2_value"] == \
-        line["scene3_value"] == 0.0
-    assert line["scene3_pairs"] == int(cut["paths"]["pairs"])
-    assert line["scene3_windows"] == 3
-    assert set(line["launches"]) == {"scene1", "scene2", "scene3"}
-    failed = [ln for ln in out.err.splitlines() if "GATE FAILED" in ln]
-    assert failed and all("scene3" in ln and "['D']" in ln
-                          for ln in failed)
+    for scene, d in ((scenes.text_scene("scene1", fa, reads_txt, n,
+                                        scenes.digests(want1)), text_dir),
+                     (scenes.bam_scene("scene2", paths2,
+                                       int(paths2["pairs"]),
+                                       scenes.digests(want2)), bam_dir)):
+        run = scenes.run_scene(scene, str(d / "port"), CPU)
+        assert not scenes.problems(scene, [run], kernel=False)
 
 
 def scene3_reports(d: str, backend: str):

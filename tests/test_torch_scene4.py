@@ -1,11 +1,11 @@
 """Scene 4 (``testing/scenes.py:build_scene4``: one BAM over four
 chromosomes, one of them without reads, with interchromosomal
 BreakDancer calls) on the CPU, cut to 540 kb at ``-w 0.2``
-(``SCENE4_CUT``): the port's fused backend through its bench on the three
-runs (``-c ALL -I``, the BED regions of ``-j``/``-J``, one ``-c`` region)
-against the reference's digests of the cut scene, each region's backend
-freed before the next one's window loop, ``build_scene4``'s plan and the
-bench's gate on a wrong scene-4 digest.  The reference digests of the
+(``SCENE4_CUT``): the port's fused backend through ``scenes.run_scene`` on
+the three runs (``-c ALL -I``, the BED regions of ``-j``/``-J``, one ``-c``
+region) against the reference's digests of the cut scene, each region's
+backend freed before the next one's window loop, ``build_scene4``'s plan
+and the gate (``scenes.problems``) on a wrong scene-4 digest.  The reference digests of the
 full and the cut scene (``testing/scene4_digests.json``) are written by
 ``PYTHONPATH=. python tests/test_torch_scene4.py --write-scene4-digests``
 (``python -m pindel_tpu --backend numpy``); slow tests check the full
@@ -22,7 +22,6 @@ import sys
 import pytest
 import torch
 
-from pindel_tpu_torch import bench
 from pindel_tpu_torch.bam import BamReader
 from pindel_tpu_torch.regions import Fai, SearchRegion, build_include_bed
 from pindel_tpu_torch.testing import scenes
@@ -70,9 +69,9 @@ def cut_digests():
 
 
 def cut_scene(name, paths, want):
-    """The bench's scene for run ``name`` of the cut scene, at -w 0.2; the
-    run with -I is held to the bound on the oracle's reads."""
-    scene = bench.bam_scene(
+    """The ``scenes.Scene`` of run ``name`` of the cut scene, at -w 0.2;
+    the run with -I is held to the bound on the route's reads."""
+    scene = scenes.bam_scene(
         name, paths, int(paths["pairs"]), want, windows=CUT_WINDOWS[name],
         spec=SCENE4_RUNS[name],
         oracle_reads=int(paths["ctx_reads"]) if name == "scene4" else None)
@@ -83,8 +82,8 @@ def cut_scene(name, paths, want):
 
 @pytest.fixture(scope="module")
 def cut(tmp_path_factory):
-    """The cut scene, and each run of it through the port's bench on the
-    CPU (fused), with its reports and its region log."""
+    """The cut scene, and each run of it through ``scenes.run_scene`` on
+    the CPU (fused), with its reports and its region log."""
     d = str(tmp_path_factory.mktemp("scene4_cut"))
     paths = scenes.build_scene4(d, cut=scenes.SCENE4_CUT)
     want = cut_digests()
@@ -93,7 +92,7 @@ def cut(tmp_path_factory):
         scene = cut_scene(name, paths, want[name])
         prefix = os.path.join(d, name)
         with measure.region_log() as regions:
-            run = bench.run(scene, prefix, CPU)
+            run = scenes.run_scene(scene, prefix, CPU)
         runs[name] = dict(scene=scene, run=run, got=scenes.reports(prefix),
                           regions=regions)
     return dict(d=d, paths=paths, runs=runs)
@@ -101,18 +100,18 @@ def cut(tmp_path_factory):
 
 @pytest.mark.parametrize("name", list(SCENE4_RUNS))
 def test_port_matches_reference(cut, name):
-    """The port's reports on each run equal the reference's, the bench's
-    gate passes, and the run spans its windows with evidence windows
+    """The port's reports on each run equal the reference's, the gate
+    passes, and the run spans its windows with evidence windows
     through K4; ``-I`` fills ``_INT`` from the reads the cross-chromosome
     route searched, all of them by K4 on a partner backend (none on the
     oracle), and without it ``_INT_final`` is written and empty."""
     r = cut["runs"][name]
     assert scenes.digests(r["got"]) == r["scene"].want
-    assert not bench.problems(r["scene"], [r["run"]], kernel=False)
+    assert not scenes.problems(r["scene"], [r["run"]], kernel=False)
     c = r["run"]["counters"]
     assert c["windows"] == CUT_WINDOWS[name]
     assert c["far_win_rows"] > 0
-    assert r["run"]["fallback"] <= bench.MAX_FALLBACK
+    assert r["run"]["fallback"] <= scenes.MAX_FALLBACK
     if name == "scene4":
         assert b"Anchor + chr1" in r["got"]["INT"]
         assert b"Anchor + chr2" in r["got"]["INT"]
@@ -196,31 +195,22 @@ def test_build_scene4_plan(tmp_path):
         assert bool(sr or rr) == (name != "chrE"), name
 
 
-def test_bench_gate_fails_on_a_scene4_digest(cut, monkeypatch, capsys):
-    """``python -m pindel_tpu_torch.bench --device cpu --scenes scene4``
-    with the cut scene as scene 4 and one of its digests wrong exits 1
-    with ``"correct": false``, and still reports the scene's windows, K4
-    rows and the reads the oracle searched across chromosomes."""
+def test_bench_gate_fails_on_a_scene4_digest(cut, tmp_path):
+    """The gate over a recorded run of the cut scene's ``-c ALL -I`` run
+    with its ``_INT`` digest wrong fails on that report alone, and the run
+    still counts the scene's pairs, its five windows, its K4 rows and the
+    reads the cross-chromosome route took."""
     r = cut["runs"]["scene4"]
-    wrong = dict(r["scene"].want, INT="0" * 64)
-    monkeypatch.setattr(bench, "SCENES", {
-        "scene4": lambda d: dataclasses.replace(r["scene"], want=wrong)})
-    assert bench.main(["--device", "cpu", "--runs", "1", "--scenes",
-                       "scene4"]) == 1
-    out = capsys.readouterr()
-    line = json.loads(out.out.strip().splitlines()[-1])
-    assert line["correct"] is False
-    assert line["value"] == line["scene4_value"] == 0.0
-    assert line["metric"] == "read-pairs/s"
-    assert line["scene4_pairs"] == int(cut["paths"]["pairs"])
-    assert line["scene4_windows"] == 5
-    assert 0 < line["scene4_oracle_reads"] <= int(
-        cut["paths"]["ctx_reads"])
-    assert line["scene4_far_win_rows"] > 0
-    assert set(line["launches"]) == {"scene4"}
-    failed = [ln for ln in out.err.splitlines() if "GATE FAILED" in ln]
-    assert failed and all("scene4" in ln and "['INT']" in ln
-                          for ln in failed)
+    wrong = dataclasses.replace(r["scene"],
+                                want=dict(r["scene"].want, INT="0" * 64))
+    run = scenes.run_scene(wrong, str(tmp_path / "wrong"), CPU)
+    c = run["counters"]
+    assert wrong.n == int(cut["paths"]["pairs"])
+    assert wrong.unit == "read pairs"
+    assert c["windows"] == 5 and c["far_win_rows"] > 0
+    assert 0 < c["oracle_reads"] <= int(cut["paths"]["ctx_reads"])
+    assert scenes.problems(wrong, [run], kernel=False) == [
+        "scene4 run 0: reports differ from the reference's: ['INT']"]
 
 
 @pytest.mark.slow

@@ -1,5 +1,5 @@
 """The port stands on its own: no file of ``pindel_tpu_torch`` (nor
-``chip_smoke.py`` and ``scan_bench.py``) imports the JAX package or jax, a
+``chip_smoke.py``) imports the JAX package or jax, a
 CLI run loads neither and takes its native libraries from ``pindel_tpu_torch/build/``, and the
 host modules the port copied from the JAX package are the reference's
 source with only the imports rewritten."""
@@ -18,8 +18,7 @@ REFERENCE = os.path.join(REPO, "pindel_tpu")
 PORT_FILES = sorted(
     os.path.relpath(p, REPO)
     for p in glob.glob(os.path.join(PORT, "**", "*.py"), recursive=True)
-    if os.sep + "build" + os.sep not in p) + ["chip_smoke.py",
-                                                 "scan_bench.py"]
+    if os.sep + "build" + os.sep not in p) + ["chip_smoke.py"]
 
 # host modules copied unchanged apart from their imports, and the native
 # sources, copied byte for byte
